@@ -1,0 +1,215 @@
+"""The PyTorch port's kernels K1 (fused occlusion + splat) and K2 (fused
+backward face sums) against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers run their plain PyTorch versions; the JAX
+kernels run in interpret mode.  tests/test_torch_cuda.py holds the CUDA
+kernels against the plain versions on the card."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nlos_surface_optimization_tpu as nst
+from nlos_surface_optimization_tpu.geometry import mesh as jmesh
+from nlos_surface_optimization_tpu.geometry.intersect import segment_occluded
+from nlos_surface_optimization_tpu.render import bwd_kernels as jbwd
+from nlos_surface_optimization_tpu.render import core as jcore
+from nlos_surface_optimization_tpu.render.fused_kernels import (
+    occluded_splat_pallas,
+)
+
+from nlos_surface_optimization_torch import convert
+from nlos_surface_optimization_torch.render import bwd_kernels, core
+from nlos_surface_optimization_torch.render import fused_kernels as fk
+
+torch.set_num_threads(1)
+
+KEY_SEED = 11
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _splat_scene(bumpy_mesh, seed, Lc, spt, num_bins, zero_frac=0.0):
+    """Rays of test_pallas.py's fused-kernel cases: sources far off-axis so
+    rays graze the bumps (real occlusion), ordered (source, face, sample)."""
+    v, f = bumpy_mesh
+    rng = np.random.RandomState(seed)
+    F = f.shape[0]
+    R = Lc * F * spt
+    src = np.stack([rng.uniform(0.7, 0.9, Lc),
+                    rng.uniform(-0.25, 0.25, Lc), 0.45 + np.zeros(Lc)], 1)
+    fi = np.tile(np.repeat(np.arange(F), spt), Lc).astype(np.int32)
+    u = rng.rand(R).astype(np.float32)
+    w = rng.rand(R).astype(np.float32)
+    m = u + w > 1
+    u[m], w[m] = 1 - u[m], 1 - w[m]
+    p = (v[f[fi, 0]] * (1 - u - w)[:, None] + v[f[fi, 1]] * u[:, None]
+         + v[f[fi, 2]] * w[:, None])
+    o = np.repeat(src, F * spt, 0).astype(np.float32)
+    d = p - o
+    t = np.linalg.norm(d, axis=1).astype(np.float32)
+    d = (d / t[:, None]).astype(np.float32)
+    contrib = rng.rand(R).astype(np.float32)
+    contrib[rng.rand(R) < zero_frac] = 0.0
+    bins = rng.randint(0, num_bins, R).astype(np.int32)
+    return v, f, o, d, t, fi, contrib, bins
+
+
+@pytest.mark.parametrize("seed,Lc,spt,num_bins,zero_frac", [
+    (1, 3, 2, 384, 0.0),      # test_pallas.py: fused kernel vs reference
+    (7, 2, 2, 4096, 0.1),     # test_pallas.py: windowed + residual splat
+])
+def test_occluded_splat_plain_matches_pallas(bumpy_mesh, seed, Lc, spt,
+                                             num_bins, zero_frac):
+    v, f, o, d, t, fi, contrib, bins = _splat_scene(
+        bumpy_mesh, seed, Lc, spt, num_bins, zero_frac)
+    f_valid = np.ones(f.shape[0], bool)
+    occ_j, hist_j = occluded_splat_pallas(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(t), jnp.asarray(fi),
+        jnp.asarray(contrib), jnp.asarray(bins), jnp.asarray(v),
+        jnp.asarray(f), jnp.asarray(f_valid), Lc, num_bins, interpret=True)
+    occ_p, hist_p = fk.occluded_splat(
+        _t(o), _t(d), _t(t), _t(fi), _t(contrib), _t(bins), _t(v),
+        _t(f).long(), _t(f_valid), Lc, num_bins)
+    occ_j = np.asarray(occ_j)
+    np.testing.assert_array_equal(occ_p.numpy(), occ_j)
+    assert occ_j.any() and (~occ_j).any()
+    np.testing.assert_allclose(hist_p.numpy(), np.asarray(hist_j),
+                               rtol=2e-6, atol=1e-7)
+
+
+def test_occluded_plain_matches_divide_based_reference(bumpy_mesh):
+    """The sign-safe predicate agrees with the divide-based segment
+    occlusion on these rays (no ray sits on a rounding boundary)."""
+    v, f, o, d, t, fi, _, _ = _splat_scene(bumpy_mesh, 1, 3, 2, 8)
+    f_valid = np.ones(f.shape[0], bool)
+    want = np.asarray(segment_occluded(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(t), jnp.asarray(fi),
+        jnp.asarray(v), jnp.asarray(f), jnp.asarray(f_valid)))
+    got = fk.occluded_plain(_t(o), _t(d), _t(t), _t(fi), _t(v), _t(f).long(),
+                            _t(f_valid), ray_tile=100, face_tile=16)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed,valid_frac", [(1, 1.0), (4, 0.6)])
+def test_broad_phase_lists_cover_every_blocker(bumpy_mesh, seed, valid_frac):
+    """Every 8-face group holding a face that blocks one of a block's rays
+    is on that block's candidate list (or the block scans everything)."""
+    v, f, o, d, t, fi, _, _ = _splat_scene(bumpy_mesh, seed, 3, 3, 8)
+    F = f.shape[0]
+    Lc = 3
+    fv = np.random.RandomState(seed).rand(F) < valid_frac
+    t[np.random.RandomState(seed + 1).rand(t.shape[0]) < 0.2] = 0.0  # dead
+    counts, lists, nbs = fk.broad_phase(_t(o), _t(d), _t(t), Lc, _t(v),
+                                        _t(f).long(), _t(fv))
+    ng = -(-F // fk.GF)
+    soup = fk.face_soup(_t(v), _t(f).long(), _t(fv), ng)[:F]
+    blocked = fk.sign_safe_blocked(
+        _t(o), _t(d), _t(t) * (1.0 - 1e-4), _t(fi), soup,
+        torch.arange(F, dtype=torch.int32), 1e-6).numpy()     # [R, F]
+    rs = t.shape[0] // Lc
+    assert blocked.any()
+    for b in range(Lc * nbs):
+        l, j = divmod(b, nbs)
+        rows = slice(l * rs + j * fk.RB, l * rs + min((j + 1) * fk.RB, rs))
+        need = set(np.nonzero(blocked[rows].any(0))[0] // fk.GF)
+        cnt = int(counts[b])
+        if cnt > fk.KA_MAX:
+            continue
+        have = set(lists[b, :cnt].tolist())
+        assert need <= have, (b, sorted(need - have))
+        assert (lists[b, cnt:] == ng).all()
+
+
+def _traced_rays(bumpy_mesh, num_samples, normal, testing_flag):
+    v, f = bumpy_mesh
+    mesh = jmesh.make_mesh(v, f)
+    if normal == "vn":
+        mesh = mesh._replace(vn=jmesh.vertex_normals(mesh.v, mesh.f,
+                                                     mesh.f_valid))
+    cfg = nst.RenderConfig(num_samples=num_samples, num_bins=300,
+                           distance_resolution=5e-3, normal=normal,
+                           testing_flag=testing_flag)
+    lighting, lnormal = nst.make_confocal_scan(4)
+    spt = cfg.samples_per_face(int(mesh.f.shape[0]))
+    rays = jcore.trace_chunk(mesh, jnp.asarray(lighting), jnp.asarray(lnormal),
+                             jax.random.key(KEY_SEED), cfg, spt)
+    return mesh, cfg, lnormal, spt, rays
+
+
+def _port_inputs(mesh, cfg, rays, device="cpu"):
+    prays = core.RayBatch(*(_t(x).to(device) for x in rays))
+    pmesh = convert.mesh_from_numpy(*(np.asarray(x) for x in mesh),
+                                    device=device)
+    pcfg = convert.config_from_fields(
+        {k: getattr(cfg, k) for k in cfg.__dataclass_fields__})
+    return prays, pmesh, pcfg
+
+
+@pytest.mark.parametrize("num_samples", [60, 160, 500])   # spt 2, 4, 10
+@pytest.mark.parametrize("normal,testing_flag", [
+    ("fn", 1), ("vn", 0), ("vn", 1)])
+def test_backward_fused_plain_matches_jax(bumpy_mesh, normal, testing_flag,
+                                          num_samples):
+    """K2's plain version (through backward_chunk_fused) and the eager
+    backward_chunk against JAX's backward_chunk on a random difference,
+    and against JAX's Pallas kernel on the constant difference that
+    test_bwd_kernel.py uses for its spt variants (on a random difference
+    at spt = 10 the interpreted Pallas kernel itself strays from JAX's
+    backward_chunk by up to 0.5% of max|g|)."""
+    mesh, cfg, lnormal, spt, rays = _traced_rays(bumpy_mesh, num_samples,
+                                                 normal, testing_flag)
+    prays, pmesh, pcfg = _port_inputs(mesh, cfg, rays)
+    diff_r = (np.random.RandomState(0).randn(16, cfg.num_bins) * 1e-3
+              ).astype(np.float32)
+    diff_c = np.full((16, cfg.num_bins), 1e-3, np.float32)
+    jn = jnp.asarray(lnormal)
+    g_ref = np.asarray(jcore.backward_chunk(rays, mesh, jn,
+                                            jnp.asarray(diff_r), 0, cfg, spt))
+    g_pal = np.asarray(jbwd.backward_chunk_fused(
+        rays, mesh, jn, jnp.asarray(diff_c), 0, cfg, spt, interpret=True))
+
+    def port(fn, diff):
+        return fn(prays, pmesh, _t(lnormal), _t(diff), 0, pcfg, spt).numpy()
+
+    checks = [(port(bwd_kernels.backward_chunk_fused, diff_r), g_ref),
+              (port(core.backward_chunk, diff_r), g_ref),
+              (port(bwd_kernels.backward_chunk_fused, diff_c), g_pal)]
+    for got, want in checks:
+        scale = np.abs(want).max()
+        assert scale > 0 and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("normal,testing_flag", [("fn", 1), ("vn", 0)])
+def test_forward_and_intensity_chunks_match_jax(bumpy_mesh, normal,
+                                                testing_flag):
+    mesh, cfg, lnormal, spt, rays = _traced_rays(bumpy_mesh, 160, normal,
+                                                 testing_flag)
+    prays, _, pcfg = _port_inputs(mesh, cfg, rays)
+    jn = jnp.asarray(lnormal)
+    for refine in (1, 10):
+        want = np.asarray(jcore.forward_chunk(rays, jn, cfg, spt, refine))
+        got = core.forward_chunk(prays, _t(lnormal), pcfg, spt, refine)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=1e-9)
+    want = np.asarray(jcore.intensity_chunk(rays, jn, cfg, spt))
+    got = core.intensity_chunk(prays, _t(lnormal), pcfg, spt)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=1e-9)
+    assert want.max() > 0
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper runs its plain version only for CPU tensors."""
+    x = torch.zeros(4, 3, device="meta")
+    with pytest.raises(ValueError):
+        fk.occluded_splat(x, x, x[:, 0], x[:, 0].int(), x[:, 0],
+                          x[:, 0].int(), x, x.long(), x[:, 0].bool(), 1, 8)
+    h = torch.zeros(1, 1, 4, device="meta")
+    with pytest.raises(ValueError):
+        bwd_kernels.backward_face_sums(h[..., None], h[..., None], h, h,
+                                       h[..., None], h[0], h[0, 0], h, 4,
+                                       False, 0.0, 1e-3, 8)
