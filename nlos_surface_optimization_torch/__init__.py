@@ -28,6 +28,8 @@ from .geometry.sampling import key, key_from_data  # noqa: F401
 from .render.api import (  # noqa: F401
     inverse_render,
     inverse_render_host,
+    render_intensity,
+    render_intensity_host,
     render_transient,
     render_transient_host,
 )

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher and is compiled
 by ``nvcc`` for sm_90a into ``_build/<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source rebuilds), then loaded with
+source, the local headers it includes and the flags, so an edited source
+or header rebuilds), then loaded with
 ctypes.  Nothing is built or loaded at import time: the first launch on a
 CUDA tensor builds what it needs, and ``build_all`` builds every kernel at
 once, one nvcc process per source, all started together.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,7 +23,8 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-KERNELS = ("occluded_splat", "backward_face_sums")
+KERNELS = ("occluded_splat", "backward_face_sums", "segment_occluded")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 # -fmad=false: every product and sum is rounded on its own, as in the
 # kernels' plain PyTorch versions (the occlusion test must match exactly).
@@ -44,9 +47,22 @@ def nvcc() -> str:
     return path
 
 
+def _sources(path: str, seen: List[str]) -> List[str]:
+    """path and every local header it includes, recursively."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as fh:
+        for inc in _INCLUDE.findall(fh.read()):
+            _sources(os.path.join(os.path.dirname(path), inc.decode()), seen)
+    return seen
+
+
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(os.path.join(CSRC, name + ".cu"), []):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

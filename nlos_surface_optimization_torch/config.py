@@ -5,12 +5,17 @@ defaults as ``nlos_surface_optimization_tpu.config.RenderConfig``, so a
 config can be carried across with ``convert.config_from_fields``.  The two
 backend switches keep their values; what they select here:
 
-  occl_backend  'auto' / 'fused'  fused occlusion + splat (render/fused_kernels:
-                                  the CUDA kernel for CUDA tensors, its plain
-                                  PyTorch version for CPU tensors)
-                'jnp'             the eager tiled Möller–Trumbore path
-                                  (render/core.trace_chunk + forward_chunk)
-                'pallas', 'mxu'   TPU-only; NotImplementedError
+  occl_backend  'auto' / 'fused'  forward: fused occlusion + splat
+                                  (render/fused_kernels K1); trace_chunk
+                                  (render_intensity): the standalone
+                                  visibility kernel (render/occl_kernels K3).
+                                  Each the CUDA kernel for CUDA tensors, its
+                                  plain PyTorch version for CPU tensors
+                'pallas'          the standalone visibility kernel, then the
+                                  eager splat (trace_chunk + forward_chunk)
+                'jnp'             the eager divide-based Möller–Trumbore
+                                  (geometry/intersect), then the eager splat
+                'mxu'             TPU-only; NotImplementedError
   bwd_backend   'auto' / 'fused'  fused per-face backward (render/bwd_kernels,
                                   kernel on CUDA, plain version on CPU)
                 'xla'             the eager render/core.backward_chunk
@@ -24,9 +29,9 @@ from typing import Tuple
 
 import numpy as np
 
-OCCL_BACKENDS = ("auto", "fused", "jnp")
+OCCL_BACKENDS = ("auto", "fused", "pallas", "jnp")
 BWD_BACKENDS = ("auto", "fused", "xla")
-_TPU_ONLY = ("pallas", "mxu")
+_TPU_ONLY = ("mxu",)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,6 +4,10 @@ Each function takes what the JAX side holds (a mesh's arrays, the words of
 ``jax.random.key_data(key)``, a RenderConfig's fields, a checkpoint's
 ``opt_step``/``opt_m``/``opt_v``) so both packages can run on the same
 mesh, key and optimizer state.
+
+A checkpoint written by the JAX package's outer loop needs no conversion:
+``optim.outer_loop.InverseRenderingLoop.from_checkpoint`` reads it as it
+reads its own (same keys; the key words in ``rng_key``).
 """
 
 from __future__ import annotations

@@ -6,13 +6,13 @@
 // sample); one CUDA block owns 128 consecutive rays of one source.
 //
 // What bounds it on an H100: arithmetic.  Each live ray runs sign-safe
-// Möller–Trumbore (~48 fp32 operations, no divide) against every face of
-// its block's candidate groups; the ray data (40 B a ray) is read once.
-// Design: the broad phase (8-face-group candidate lists, torch ops in the
-// wrapper) cuts the face tests; the faces are read from global memory
-// (L1/L2: every thread of a warp reads the same face, a broadcast); a ray
-// stops at its first blocking face; dead rays (t_cut <= t_min, which no
-// face can block) test nothing.  Compiled with -fmad=false so that each
+// Möller–Trumbore (~48 fp32 operations, no divide; mt_sign_safe.cuh,
+// shared with K3) against every face of its block's candidate groups; the
+// ray data (40 B a ray) is read once.  Design: the broad phase (8-face-
+// group candidate lists, torch ops in the wrapper) cuts the face tests;
+// the faces are read from global memory (L1/L2: every thread of a warp
+// reads the same face, a broadcast); a ray stops at its first blocking
+// face; dead rays (t_cut <= t_min, which no face can block) test nothing.  Compiled with -fmad=false so that each
 // product and sum rounds as in the plain PyTorch version: the mask must
 // match it exactly.
 //
@@ -26,10 +26,11 @@
 #include <cuda_runtime.h>
 #include <cub/block/block_radix_sort.cuh>
 
+#include "mt_sign_safe.cuh"
+
 namespace {
 
 constexpr int RB = 128;        // rays per block
-constexpr int GF = 8;          // faces per candidate group
 constexpr int LIST_CAP = 1024; // largest candidate list a block can hold
 constexpr int U = 8;           // blocks prefetched per step of the reduce
 
@@ -76,41 +77,8 @@ occl_kernel(const float* __restrict__ o, const float* __restrict__ d,
   // t_cut <= t_min: tn > t_min*dd and tn < t_cut*dd cannot both hold
   if (live && t_cut > t_min) {
     for (int k = 0; k < n && !occluded; ++k) {
-      const int g = full ? k : s_list[k];
-      const float4* fp = soup + (size_t)g * GF * 3;
-      for (int m = 0; m < GF; ++m) {
-        const float4 A = __ldg(fp + 3 * m);
-        const float4 B = __ldg(fp + 3 * m + 1);
-        const float4 C = __ldg(fp + 3 * m + 2);
-        const float p1x = A.x, p1y = A.y, p1z = A.z;
-        const float e1x = A.w, e1y = B.x, e1z = B.y;
-        const float e2x = B.z, e2y = B.w, e2z = C.x;
-        const float val = C.y;
-        const float pvx = dy * e2z - dz * e2y;
-        const float pvy = dz * e2x - dx * e2z;
-        const float pvz = dx * e2y - dy * e2x;
-        const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-        const float tvx = ox - p1x;
-        const float tvy = oy - p1y;
-        const float tvz = oz - p1z;
-        const float u_num = tvx * pvx + tvy * pvy + tvz * pvz;
-        const float qvx = tvy * e1z - tvz * e1y;
-        const float qvy = tvz * e1x - tvx * e1z;
-        const float qvz = tvx * e1y - tvy * e1x;
-        const float v_num = dx * qvx + dy * qvy + dz * qvz;
-        const float t_num = e2x * qvx + e2y * qvy + e2z * qvz;
-        const float s = det >= 0.f ? 1.f : -1.f;
-        const float dd = det * s;
-        const float un = u_num * s;
-        const float vn = v_num * s;
-        const float tn = t_num * s;
-        if (dd > eps_det && un >= 0.f && vn >= 0.f && un + vn <= dd &&
-            val > 0.5f && tn > t_min * dd && tn < t_cut * dd &&
-            g * GF + m != sfid) {
-          occluded = true;
-          break;
-        }
-      }
+      occluded = nst::group_blocks(soup, full ? k : s_list[k], ox, oy, oz,
+                                   dx, dy, dz, t_cut, t_min, eps_det, sfid);
     }
   }
   if (live) occ[r] = occluded ? 1 : 0;

@@ -14,7 +14,8 @@ import torch
 
 class Mesh(NamedTuple):
     """v [V,3] f32, f [F,3] int64, f_valid [F] bool, vn [V,3] f32 (zeros
-    unless 'vn' shading), albedo [V] f32 (ones unless given)."""
+    unless 'vn' shading), albedo [V] f32 (ones unless given); float64 where
+    ``make_mesh`` is given that dtype (a GT mesh for compute_v2)."""
 
     v: torch.Tensor
     f: torch.Tensor
@@ -35,24 +36,25 @@ def make_mesh(
     pad_v: Optional[int] = None,
     pad_f: Optional[int] = None,
     device="cuda",
+    dtype=np.float32,
 ) -> Mesh:
-    v = np.asarray(v, dtype=np.float32)
+    v = np.asarray(v, dtype=dtype)
     f = np.asarray(f, dtype=np.int64)
     V, F = v.shape[0], f.shape[0]
     pv = V if pad_v is None else pad_v
     pf = F if pad_f is None else pad_f
     if pv < V or pf < F:
         raise ValueError(f"padding ({pv}, {pf}) below mesh size ({V}, {F})")
-    vpad = np.zeros((pv, 3), np.float32)
+    vpad = np.zeros((pv, 3), dtype)
     vpad[:V] = v
     fpad = np.zeros((pf, 3), np.int64)
     fpad[:F] = f
     valid = np.zeros((pf,), bool)
     valid[:F] = True
-    vnp = np.zeros((pv, 3), np.float32)
+    vnp = np.zeros((pv, 3), dtype)
     if vn is not None:
         vnp[:V] = vn
-    alb = np.ones((pv,), np.float32)
+    alb = np.ones((pv,), dtype)
     if albedo is not None:
         alb[:V] = albedo
 
@@ -111,24 +113,15 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor,
     """out[s] = sum of values[i] with ids[i] == s, summed in index order.
 
     Deterministic on every device (no atomics): entries are grouped by a
-    stable sort into a [num_segments, max_count] index table, and its
-    columns are added one after another."""
+    stable sort, and ``torch.segment_reduce`` adds each segment's entries
+    one after another.  Its cost does not grow with the largest segment
+    (the padding faces of a bucketed mesh all sit on vertex 0)."""
     ids = ids.reshape(-1)
-    n = ids.shape[0]
     order = torch.argsort(ids, stable=True)
-    sid = ids[order]
-    counts = torch.bincount(ids, minlength=num_segments)
-    width = int(counts.max()) if n else 0
-    starts = torch.cumsum(counts, 0) - counts
-    pos = torch.arange(n, device=ids.device) - starts[sid]
-    table = torch.full((num_segments, width), n, dtype=torch.int64,
-                       device=ids.device)
-    table[sid, pos] = order
-    padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
-    out = values.new_zeros((num_segments,) + values.shape[1:])
-    for j in range(width):
-        out = out + padded[table[:, j]]
-    return out
+    bounds = torch.searchsorted(ids[order], torch.arange(
+        num_segments + 1, dtype=ids.dtype, device=ids.device))
+    return torch.segment_reduce(values[order], "sum",
+                                lengths=bounds[1:] - bounds[:-1], axis=0)
 
 
 def scatter_faces(per_face: torch.Tensor, f: torch.Tensor,

@@ -1,10 +1,12 @@
-"""Host-side mesh topology (numpy): edge adjacency and border vertices.
+"""Host-side mesh topology (numpy): adjacency, borders, components, culling.
 
 Copied from the JAX package's numpy-only topology module, so that this
 package needs nothing of it.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -60,3 +62,79 @@ def border_vertices(f: np.ndarray, num_vertices: int) -> np.ndarray:
     mask = np.isin(keys, uniq[counts == 1])
     ind[np.unique(e[mask].reshape(-1))] = 1
     return ind
+
+
+def connected_components(f: np.ndarray, num_vertices: int) -> np.ndarray:
+    """[V] component label per vertex (union-find over face edges)."""
+    parent = np.arange(num_vertices)
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for tri in np.asarray(f):
+        a, b, c = (int(t) for t in tri)
+        ra, rb, rc = find(a), find(b), find(c)
+        parent[ra] = rb = find(rb)
+        parent[find(rc)] = find(rb)
+    return np.array([find(i) for i in range(num_vertices)])
+
+
+def keep_largest_component(v: np.ndarray, f: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Keep faces of the component with the most faces
+    (cgal keep_largest_connected_components semantics), then drop
+    unreferenced vertices."""
+    labels = connected_components(f, v.shape[0])
+    fl = labels[f[:, 0]]
+    uniq, counts = np.unique(fl, return_counts=True)
+    keep_label = uniq[np.argmax(counts)]
+    f2 = f[fl == keep_label]
+    return remove_unreferenced(v, f2)
+
+
+def remove_unreferenced(v: np.ndarray, f: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    used = np.unique(f.reshape(-1))
+    remap = -np.ones(v.shape[0], np.int64)
+    remap[used] = np.arange(len(used))
+    return v[used], remap[f].astype(np.int32)
+
+
+def convex_hull_2d(points: np.ndarray) -> np.ndarray:
+    """Indices of the 2-D convex hull in counter-clockwise order (Andrew
+    monotone chain) — cgal_api.find_convex_hull equivalent
+    (c_cgal_api.cpp:250+)."""
+    pts = np.asarray(points)[:, :2]
+    order = np.lexsort((pts[:, 1], pts[:, 0]))
+
+    def cross2(u, w):
+        return u[0] * w[1] - u[1] * w[0]
+
+    def half(indices):
+        out = []
+        for i in indices:
+            while len(out) >= 2:
+                o, a = pts[out[-2]], pts[out[-1]]
+                if cross2(a - o, pts[i] - o) <= 0:
+                    out.pop()
+                else:
+                    break
+            out.append(i)
+        return out
+
+    lower = half(order)
+    upper = half(order[::-1])
+    return np.asarray(lower[:-1] + upper[:-1], np.int64)
+
+
+def remove_triangles(f: np.ndarray, affinity: np.ndarray,
+                     intensity: np.ndarray, threshold: float = 0.0
+                     ) -> np.ndarray:
+    """Keep mask for removeTriangle (rendering.py:271-278): a face survives
+    if its rendered intensity exceeds the threshold OR it has all 3 edge
+    neighbors (interior faces are never culled)."""
+    interior = np.sum(affinity < 0, axis=1) == 0
+    return (intensity > threshold) | interior

@@ -1,6 +1,7 @@
 """Rendering entry points: the confocal transient and its vertex gradient.
 
   render_transient   forward transient [L, B] (+ pathlengths [B])
+  render_intensity   per-face visibility intensity [F] (culling)
   inverse_render     (transient, vertex gradient [V,3], pathlengths)
 
 Sources are processed in chunks of cfg.source_chunk by a Python loop;
@@ -21,6 +22,7 @@ from ..geometry.mesh import Mesh
 from .core import (
     backward_chunk,
     forward_chunk,
+    intensity_chunk,
     trace_chunk,
     trace_forward_fused,
 )
@@ -62,7 +64,7 @@ def _trace_and_forward(mesh: Mesh, lc, nc_, key, cfg: RenderConfig, spt: int,
                        off: int, refine: int):
     """(RayBatch, fine histogram) for one source chunk, through the fused
     kernel or the eager trace + splat pair (same semantics)."""
-    if cfg.occl_backend in ("auto", "fused"):
+    if cfg.occl_backend in ("auto", "fused"):  # K1; 'pallas', 'jnp': below
         return trace_forward_fused(mesh, lc, nc_, key, cfg, spt, refine,
                                    source_offset=off)
     rays = trace_chunk(mesh, lc, nc_, key, cfg, spt, source_offset=off)
@@ -89,6 +91,29 @@ def render_transient(mesh: Mesh, lighting, lighting_normal,
 
 
 render_transient_host = render_transient
+
+
+def render_intensity(mesh: Mesh, lighting, lighting_normal,
+                     cfg: RenderConfig, key) -> torch.Tensor:
+    """Per-face visibility intensity [F] summed over sources, for
+    invisible-triangle culling: the per-chunk intensities, each traced
+    through ``trace_chunk`` (the standalone visibility kernel), added in
+    chunk order."""
+    check_backends(cfg)
+    dev = mesh.device
+    spt = _spt(cfg, mesh)
+    lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
+                                  _as_tensor(lighting_normal, dev), cfg)
+    out = None
+    for i in range(nc):
+        rays = trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
+                           source_offset=i * Lc)
+        part = intensity_chunk(rays, nrm[i], cfg, spt)
+        out = part if out is None else out + part
+    return out
+
+
+render_intensity_host = render_intensity
 
 
 def _difference(data, transient, weight, cfg: RenderConfig):

@@ -130,25 +130,41 @@ def _pre_valid(mesh: Mesh, in_range, area):
     return mesh.f_valid[None, :, None] & in_range & (area > 0)[None, :, None]
 
 
-def trace_chunk(mesh: Mesh, lighting, lighting_normal, key, cfg: RenderConfig,
-                spt: int, source_offset: int = 0) -> RayBatch:
-    """Sample every face from every source in the chunk and run the eager
-    (divide-based, tiled) visibility query."""
-    Lc = lighting.shape[0]
-    F = mesh.f.shape[0]
+def occlusion_inputs(mesh: Mesh, lighting, lighting_normal, key,
+                     cfg: RenderConfig, spt: int, source_offset: int = 0):
+    """(RayBatch before occlusion, args, kwargs) of the visibility query
+    for one source chunk: ``segment_occluded(*args, **kwargs)``.  Rays
+    whose contribution is zero in every consumer get t_self = 0 and skip
+    the test."""
     (bary, dirs, hs, in_range, face_n, area,
      o_flat, d_flat, t_flat, fid) = _sample_chunk(
         mesh, lighting, key, cfg, spt, source_offset)
-    R = Lc * F * spt
     normal, alb = _interp_attrs(mesh, bary, dirs, face_n, cfg)
     pre_valid = _pre_valid(mesh, in_range, area)
     skip = _occl_skip_mask(dirs, normal, face_n, lighting_normal, pre_valid)
-    t_flat = torch.where(skip.reshape(R), 0.0, t_flat)
-    occ = segment_occluded(o_flat, d_flat, t_flat, fid, mesh.v, mesh.f,
-                           mesh.f_valid, t_rel=cfg.occl_t_rel,
-                           t_min=cfg.occl_t_min).reshape(Lc, F, spt)
-    return RayBatch(dirs=dirs, h=hs, normal=normal, albedo=alb, bary=bary,
-                    valid=pre_valid & ~occ, area=area, face_n=face_n)
+    t_flat = torch.where(skip.reshape(-1), 0.0, t_flat)
+    rays_pre = RayBatch(dirs=dirs, h=hs, normal=normal, albedo=alb,
+                        bary=bary, valid=pre_valid, area=area, face_n=face_n)
+    args = (o_flat.contiguous(), d_flat, t_flat, fid, mesh.v, mesh.f,
+            mesh.f_valid)
+    return rays_pre, args, dict(t_rel=cfg.occl_t_rel, t_min=cfg.occl_t_min)
+
+
+def trace_chunk(mesh: Mesh, lighting, lighting_normal, key, cfg: RenderConfig,
+                spt: int, source_offset: int = 0) -> RayBatch:
+    """Sample every face from every source in the chunk and run the
+    visibility query: the standalone visibility kernel
+    (render/occl_kernels.segment_occluded, its plain version on the CPU),
+    or with occl_backend 'jnp' the eager divide-based segment_occluded."""
+    rays_pre, args, kwargs = occlusion_inputs(mesh, lighting, lighting_normal,
+                                              key, cfg, spt, source_offset)
+    if cfg.occl_backend == "jnp":
+        occl = segment_occluded
+    else:
+        from .occl_kernels import segment_occluded as occl
+    occ = occl(*args, **kwargs)
+    return rays_pre._replace(
+        valid=rays_pre.valid & ~occ.reshape(rays_pre.h.shape))
 
 
 def _contrib_and_bins(rays: RayBatch, lighting_normal, cfg: RenderConfig,
@@ -177,22 +193,13 @@ def splat_inputs(mesh: Mesh, lighting, lighting_normal, key,
     The contribution is computed before occlusion (the kernel zeroes
     occluded rays); rays whose contribution is zero everywhere get
     t_self = 0 and skip the visibility test."""
-    Lc = lighting.shape[0]
-    (bary, dirs, hs, in_range, face_n, area,
-     o_flat, d_flat, t_flat, fid) = _sample_chunk(
-        mesh, lighting, key, cfg, spt, source_offset)
-    normal, alb = _interp_attrs(mesh, bary, dirs, face_n, cfg)
-    pre_valid = _pre_valid(mesh, in_range, area)
-    rays_pre = RayBatch(dirs=dirs, h=hs, normal=normal, albedo=alb,
-                        bary=bary, valid=pre_valid, area=area, face_n=face_n)
+    rays_pre, (o, d, t, fid, v, f, f_valid), kwargs = occlusion_inputs(
+        mesh, lighting, lighting_normal, key, cfg, spt, source_offset)
     contrib, bin_f = _contrib_and_bins(rays_pre, lighting_normal, cfg, spt,
                                        refine)
-    skip = _occl_skip_mask(dirs, normal, face_n, lighting_normal, pre_valid)
-    t_flat = torch.where(skip.reshape(-1), 0.0, t_flat)
-    args = (o_flat.contiguous(), d_flat, t_flat, fid, contrib.reshape(-1),
-            bin_f.reshape(-1), mesh.v, mesh.f, mesh.f_valid, Lc,
-            cfg.num_bins * refine)
-    return rays_pre, args, dict(t_rel=cfg.occl_t_rel, t_min=cfg.occl_t_min)
+    args = (o, d, t, fid, contrib.reshape(-1), bin_f.reshape(-1), v, f,
+            f_valid, lighting.shape[0], cfg.num_bins * refine)
+    return rays_pre, args, kwargs
 
 
 def trace_forward_fused(mesh: Mesh, lighting, lighting_normal, key,

@@ -126,13 +126,17 @@ def broad_phase(o, d, t_self, Lc: int, v, f, f_valid, ka_max: int = KA_MAX):
 
 
 def sign_safe_blocked(o, d, t_cut, self_fid, soup, fids, t_min: float,
-                      eps_det: float = EPS_DET):
+                      eps_det: float = EPS_DET, pairs: bool = False):
     """[r, k] bool: face k blocks ray r (the kernel's predicate, operation
-    for operation: no divide, each product and sum rounded on its own)."""
-    ox, oy, oz = (o[:, None, i] for i in range(3))
-    dx, dy, dz = (d[:, None, i] for i in range(3))
+    for operation: no divide, each product and sum rounded on its own).
+    With ``pairs``, ray i is tested against face i only -> [n]."""
+    ray = (slice(None),) if pairs else (slice(None), None)
+    face = (slice(None),) if pairs else (None, slice(None))
+    t_cut, self_fid = t_cut[ray], self_fid[ray]
+    ox, oy, oz = (o[ray + (i,)] for i in range(3))
+    dx, dy, dz = (d[ray + (i,)] for i in range(3))
     p1x, p1y, p1z, e1x, e1y, e1z, e2x, e2y, e2z, val = (
-        soup[None, :, i] for i in range(10))
+        soup[face + (i,)] for i in range(10))
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
@@ -152,28 +156,70 @@ def sign_safe_blocked(o, d, t_cut, self_fid, soup, fids, t_min: float,
     vn = v_num * s
     tn = t_num * s
     return ((dd > eps_det) & (un >= 0.0) & (vn >= 0.0) & (un + vn <= dd)
-            & (val > 0.5) & (tn > t_min * dd) & (tn < t_cut[:, None] * dd)
-            & (fids[None, :] != self_fid[:, None]))
+            & (val > 0.5) & (tn > t_min * dd) & (tn < t_cut * dd)
+            & (fids[face] != self_fid))
+
+
+def _face_columns(soup, rows: int):
+    """The soup's p1 | e1 | e2 | valid columns, each expanded to a
+    contiguous [rows, k]: every operation of ``_blocked_any`` then pairs a
+    full tile with a ray column or another full tile, PyTorch's fast
+    cases (a product of a row by a column is several times slower)."""
+    return [soup[:, i].expand(rows, soup.shape[0]).contiguous()
+            for i in range(10)]
+
+
+def _blocked_any(o, d, t_cut, self_fid, soup, fids, cols, t_min: float,
+                 eps_det: float = EPS_DET):
+    """[r] bool: ``sign_safe_blocked(...).any(1)`` for r rays against the
+    k faces of ``soup`` (``cols``: ``_face_columns(soup, >= r)``), in two
+    stages.  The first evaluates the predicate's u conditions (dd > eps,
+    0 <= un <= dd; un + vn <= dd with vn >= 0 implies un <= dd) for every
+    pair; the second the whole predicate, operation for operation, for the
+    surviving pairs only (about a tenth)."""
+    n = o.shape[0]
+    ox, oy, oz = (o[:, i:i + 1] for i in range(3))
+    dx, dy, dz = (d[:, i:i + 1] for i in range(3))
+    p1x, p1y, p1z, e1x, e1y, e1z, e2x, e2y, e2z, val = (c[:n] for c in cols)
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    u_num = (ox - p1x) * pvx + (oy - p1y) * pvy + (oz - p1z) * pvz
+    s = torch.where(det >= 0.0, 1.0, -1.0)
+    dd = det * s
+    un = u_num * s
+    i, j = torch.nonzero((dd > eps_det) & (un >= 0.0) & (un <= dd)
+                         & (val > 0.5), as_tuple=True)
+    hit = sign_safe_blocked(o[i], d[i], t_cut[i], self_fid[i],
+                            soup[j], fids[j], t_min, eps_det, pairs=True)
+    out = torch.zeros(n, dtype=torch.bool, device=o.device)
+    return out.index_fill_(0, i[hit], True)
 
 
 def occluded_plain(o, d, t_self, self_fid, v, f, f_valid, t_rel=1e-4,
-                   t_min=1e-6, ray_tile: int = 8192, face_tile: int = 512):
-    """[R] bool occlusion by the kernel's predicate against every face."""
+                   t_min=1e-6, ray_tile=None, face_tile: int = 512):
+    """[R] bool occlusion by the kernel's predicate against every face
+    (rays with t_cut <= t_min, which no face can block, are not tested).
+    Tiles of ray_tile x face_tile pairs, by default about 64 K on the CPU
+    (each temporary stays in cache) and 4 M on a card."""
     F = f.shape[0]
     soup = face_soup(v, f, f_valid, -(-F // GF))[:F]
     fids = torch.arange(F, dtype=torch.int32, device=o.device)
     t_cut = t_self * (1.0 - t_rel)
     sfid = self_fid.to(torch.int32)
-    R = o.shape[0]
-    occ = torch.zeros(R, dtype=torch.bool, device=o.device)
-    for r0 in range(0, R, ray_tile):
-        rs = slice(r0, min(r0 + ray_tile, R))
-        acc = occ[rs]
-        for f0 in range(0, F, face_tile):
-            fs = slice(f0, min(f0 + face_tile, F))
-            acc = acc | sign_safe_blocked(o[rs], d[rs], t_cut[rs], sfid[rs],
-                                          soup[fs], fids[fs], t_min).any(1)
-        occ[rs] = acc
+    occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    live = torch.nonzero(t_cut > t_min)[:, 0]
+    if ray_tile is None:
+        pairs = 1 << 16 if o.device.type == "cpu" else 1 << 22
+        ray_tile = max(1, pairs // max(min(face_tile, F), 1))
+    for f0 in range(0, F, face_tile):
+        fs = slice(f0, min(f0 + face_tile, F))
+        cols = _face_columns(soup[fs], min(ray_tile, live.shape[0]))
+        for r0 in range(0, live.shape[0], ray_tile):
+            rs = live[r0:r0 + ray_tile]
+            occ[rs] |= _blocked_any(o[rs], d[rs], t_cut[rs], sfid[rs],
+                                    soup[fs], fids[fs], cols, t_min)
     return occ
 
 

@@ -15,6 +15,7 @@ import nlos_surface_optimization_torch as pt
 from nlos_surface_optimization_torch.render import bwd_kernels as bk
 from nlos_surface_optimization_torch.render import core
 from nlos_surface_optimization_torch.render import fused_kernels as fk
+from nlos_surface_optimization_torch.render import occl_kernels as ok
 
 pytestmark = pytest.mark.gpu
 
@@ -145,3 +146,95 @@ def test_uniforms_on_the_card_equal_the_cpu(cuda):
     S_c, T_c = sampling.uniforms_for(k, 5, 37, 7, source_offset=4095,
                                      device="cpu")
     assert torch.equal(S.cpu(), S_c) and torch.equal(T.cpu(), T_c)
+
+
+def _mixed_rays(v, f, n, seed=0):
+    """test_pallas.py's rays: random wall origins (a block mixes origins)
+    toward random targets above the surface."""
+    rng = np.random.RandomState(seed)
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = rng.uniform(-0.25, 0.25, n)
+    o[:, 1] = rng.uniform(-0.25, 0.25, n)
+    tgt = np.stack([rng.uniform(-0.25, 0.25, n), rng.uniform(-0.25, 0.25, n),
+                    rng.uniform(0.4, 0.6, n)], 1).astype(np.float32)
+    d = tgt - o
+    t = np.linalg.norm(d, axis=1)
+    fid = rng.randint(0, f.shape[0], n).astype(np.int32)
+    return o, (d / t[:, None]).astype(np.float32), t.astype(np.float32), fid
+
+
+@pytest.mark.parametrize("ka_max", [ok.KA_MAX, 1])   # 1: full-scan blocks
+@pytest.mark.parametrize("scene", ["bumpy", "graze", "big"])
+def test_segment_occluded_kernel_matches_plain(cuda, monkeypatch, ka_max,
+                                               scene):
+    """K3 on mixed-origin rays, on grazing rays ordered by source, and on a
+    height field above 65,536 faces (several ray groups)."""
+    monkeypatch.setattr(ok, "KA_MAX", ka_max)
+    if scene == "big":
+        n = 200                                      # 79,202 faces
+        v, f = _bumpy(n)
+        rays = _mixed_rays(v, f, 3000)
+        monkeypatch.setattr(ok, "GROUP_PAIRS", 1 << 16)   # 6 blocks a group
+    else:
+        v, f = _bumpy()
+        rays = (_mixed_rays(v, f, 700) if scene == "bumpy"
+                else _graze(v, f, 3, 2, 10)[:4])
+    mesh = pt.make_mesh(v, f, device=cuda)
+    args = tuple(torch.from_numpy(x).to(cuda) for x in rays) + (
+        mesh.v, mesh.f, mesh.f_valid)
+    before = ok.segment_occluded.launches
+    occ = ok.segment_occluded(*args)
+    occ2 = ok.segment_occluded(*args)
+    occ_p = fk.occluded_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, occ_p) and torch.equal(occ, occ2)
+    assert occ.any() and (~occ).any()
+    groups = len(ok.ray_groups(args[0].shape[0], -(-f.shape[0] // fk.GF)))
+    assert ok.segment_occluded.launches - before == 2 * groups
+    if scene == "big":
+        assert f.shape[0] > 65536 and groups > 1
+
+
+def test_segment_occluded_refuses_bad_inputs(cuda):
+    v, f = _bumpy()
+    mesh = pt.make_mesh(v, f, device=cuda)
+    o, d, t, fid = (torch.from_numpy(x).to(cuda)
+                    for x in _mixed_rays(v, f, 64))
+    with pytest.raises(ValueError):
+        ok.segment_occluded(o, d, t, fid.long(), mesh.v, mesh.f, mesh.f_valid)
+    with pytest.raises(ValueError):
+        ok.segment_occluded(o, d, t.cpu(), fid, mesh.v, mesh.f, mesh.f_valid)
+
+
+@pytest.mark.parametrize("backend", ["auto", "fused", "pallas"])
+def test_trace_chunk_reaches_k3_on_the_card(cuda, backend):
+    v, f = _bumpy()
+    cfg = pt.RenderConfig(num_samples=400, num_bins=300,
+                          distance_resolution=5e-3, occl_backend=backend)
+    lighting, lnormal = (torch.from_numpy(x) for x in pt.make_confocal_scan(4))
+    spt = cfg.samples_per_face(f.shape[0])
+    before = ok.segment_occluded.launches
+    rays = core.trace_chunk(pt.make_mesh(v, f, device=cuda),
+                            lighting.to(cuda), lnormal.to(cuda), pt.key(3),
+                            cfg, spt)
+    rays_c = core.trace_chunk(pt.make_mesh(v, f, device="cpu"), lighting,
+                              lnormal, pt.key(3), cfg, spt)
+    assert ok.segment_occluded.launches > before
+    assert torch.equal(rays.valid.cpu(), rays_c.valid)
+
+
+@pytest.mark.parametrize("source_chunk", [0, 3])
+def test_render_intensity_card_matches_cpu(cuda, source_chunk):
+    from nlos_surface_optimization_torch.geometry import topology
+
+    v, f = _bumpy()
+    lighting, lnormal = pt.make_confocal_scan(4)
+    cfg = pt.RenderConfig(num_samples=400, num_bins=300,
+                          distance_resolution=5e-3, source_chunk=source_chunk)
+    got, want = (pt.render_intensity(pt.make_mesh(v, f, device=dev),
+                                     lighting, lnormal, cfg, pt.key(3)).cpu()
+                 for dev in (cuda, "cpu"))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
+    aff = topology.face_affinity(f)
+    assert np.array_equal(topology.remove_triangles(f, aff, got.numpy()),
+                          topology.remove_triangles(f, aff, want.numpy()))

@@ -107,7 +107,7 @@ def test_eager_backends_match_the_kernel_path(bumpy_mesh):
 
 
 @pytest.mark.parametrize("field,value,error", [
-    ("occl_backend", "pallas", NotImplementedError),
+    ("occl_backend", "nope", ValueError),
     ("occl_backend", "mxu", NotImplementedError),
     ("bwd_backend", "nope", ValueError),
     ("brdf", "ggx", NotImplementedError),
@@ -206,4 +206,4 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 35

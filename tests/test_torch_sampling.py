@@ -25,6 +25,17 @@ def test_key_from_data_round_trip():
     np.testing.assert_array_equal(sampling.key_from_data(data).numpy(), data)
 
 
+@pytest.mark.parametrize("seed", [0, 23, 2**31 - 1])
+def test_fold_in_matches_jax(seed):
+    """The outer loop's per-iteration key (frozen_sampling=False)."""
+    ts = [0, 1, 6, 15, 499, 2**31 - 1]
+    got = sampling.fold_in(sampling.key(seed), torch.tensor(ts)).numpy()
+    for t, row in zip(ts, got):
+        want = jax.random.key_data(jax.random.fold_in(jax.random.key(seed),
+                                                      t))
+        np.testing.assert_array_equal(row, np.asarray(want))
+
+
 @pytest.mark.parametrize("seed,offset,num_faces,spt", [
     (0, 0, 37, 7), (3, 5, 3, 1), (11, 4095, 50, 2), (12345, 70000, 9, 128),
 ])
