@@ -8,17 +8,22 @@ Phases, each printing one JSON line with the card's name and power limit:
   build    compile every kernel in nlos_surface_optimization_torch/csrc with
            nvcc (sm_90a), one process per source, all started together
   k1       the fused occlusion + splat kernel against its plain PyTorch
-           version, on a small scene and on one flagship source chunk:
-           equal masks, histogram within rtol 2e-6 / atol 1e-7*max, two
-           launches bit-identical
+           version: a small grazing scene; one flagship source chunk
+           (3,042 faces, 64 sources, 1.36 M rays); the loop's largest
+           chunk ("large": a 23,762-face height field, 64 sources, 1.5 M
+           rays); the GT render's shapes ("gt": 12,000 fine bins, 9
+           sources).  Equal masks, histogram within rtol 2e-6 / atol
+           1e-7*max, two launches bit-identical, the kernel's per-block
+           candidate counts equal to the plain broad phase's
   k2       the fused backward face-sum kernel against its plain version on
-           the same chunk: rtol 2e-4 / atol 2e-5*max|g|, two launches
+           the flagship chunk: rtol 2e-4 / atol 2e-5*max|g|, two launches
            bit-identical
   k3       the standalone visibility kernel against its plain version:
            grazing rays on a small scene, one render_intensity chunk at
            the loop's culling shapes (the flagship height field, 64
-           sources, 1.36 M rays) and rays against a 79,202-face height
-           field; equal masks, two launches bit-identical
+           sources, 1.36 M rays), the loop's largest chunk ("large") and
+           rays against a 79,202-face height field; equal masks and
+           candidate counts, two launches bit-identical
   uniforms the threefry draws of one chunk on the card equal the CPU's
   small    inverse_render on the card against the CPU on a small scene
   intensity render_intensity on the card against the CPU on a small scene:
@@ -40,8 +45,13 @@ Phases, each printing one JSON line with the card's name and power limit:
            checkpoint to 16: the histories, faces and vertices equal the
            uninterrupted run's exactly
 
-Then one JSON line of per-kernel numbers (launches from the loop phase),
-the nvidia-smi line, and the closing {"ok": true, ...} line.  Any failed
+Each K1 and K3 case prints the wrapper's time as a render calls it (the
+face hierarchy given), the kernel's (K1: occlusion and reduce apart), the
+hierarchy's build (prep_ms, once per render), the plain version's, the
+mean candidate groups per block, and a bound that does not depend on the
+broad phase (``occlusion_bound``).  Then one JSON line of per-kernel
+numbers (launches from the loop phase), the nvidia-smi line, and the
+closing {"ok": true, ...} line.  Any failed
 check raises; nothing falls back to the CPU.  With --profile, one more
 descent step runs under torch.profiler and its kernel table goes to
 DIR/profile.txt.
@@ -73,6 +83,11 @@ FLAGSHIP = dict(num_samples=20000, num_bins=1200, distance_resolution=1.2e-3,
                 sigma_bin=1, bin_refine_resolution=10, source_chunk=64)
 SCAN = 64
 STEPS = 3
+# the K1/K3 "large" case: an n x n height field (23,762 faces at n = 110,
+# the loop's largest meshes); the K1 "gt" case: GT samples and sources
+LARGE_N = 110
+GT_SAMPLES = 200_000
+GT_SOURCES = 9
 # the loop phase: run_experiment's scene and iterations; None = the scene's
 # own scan, samples and GT samples
 SCENE = "armadillo"
@@ -177,6 +192,75 @@ def nbytes(*tensors) -> int:
 # ------------------------------------------------------------------ K1
 
 
+def block_rays(R, Lc, nbs=None):
+    """[blocks, 128] ray index of each kernel block (-1 past a source's or
+    the rays' end): K1's blocks of one source each (Lc sources, nbs blocks
+    a source), or with Lc None K3's consecutive blocks."""
+    if Lc is None:
+        idx = torch.arange(-(-R // 128) * 128)
+        return torch.where(idx < R, idx, -1).reshape(-1, 128)
+    rs = R // Lc
+    j = torch.arange(nbs * 128)
+    idx = torch.arange(Lc)[:, None] * rs + j[None, :]
+    return torch.where(j[None, :] < rs, idx, -1).reshape(-1, 128)
+
+
+def crossing_tests(o, d, t_cut, fid, free, v, f, f_valid, hier, lists,
+                   rows):
+    """For each ray of ``free``: the valid faces other than its own whose
+    box (widened by 1e-5) its segment o -> o + d*t_cut crosses, looked for
+    among the groups of its block's list (a superset: a block's list holds
+    every group its rays' segments can reach; ``hier`` maps its groups to
+    mesh faces).  Tiled on the card."""
+    from nlos_surface_optimization_torch.render import fused_kernels as fk
+
+    dev = o.device
+    tri = v[f]                                               # [F, 3, 3]
+    fbox = torch.cat([tri.amin(1), tri.amax(1)], 1)
+    rows = rows.to(dev)
+    end = o + d * t_cut[:, None]
+    W = max(lists.shape[1], 1)
+    tile = max(1, (1 << 23) // (128 * W))
+    total = 0
+    for b0 in range(0, rows.shape[0], tile):
+        r = rows[b0:b0 + tile]                               # [tb, 128]
+        g = lists[b0:b0 + tile].long()                       # [tb, W]
+        ray_ok = (r >= 0) & free[r.clamp(min=0)]
+        rc = r.clamp(min=0)
+        hit = fk._slab_hits(o[rc][:, :, None], end[rc][:, :, None],
+                            torch.zeros_like(o[rc])[:, :, None],
+                            hier.group_boxes[g.clamp(min=0)][:, None])
+        hit &= ray_ok[:, :, None] & (g >= 0)[:, None, :]
+        ti, ri, wi = torch.nonzero(hit, as_tuple=True)
+        ray = rc[ti, ri]
+        face = hier.faces[g[ti, wi][:, None] * fk.GF
+                          + torch.arange(fk.GF, device=dev)].long()
+        fc = face.clamp(min=0)
+        cross = fk._slab_hits(o[ray][:, None], end[ray][:, None],
+                              torch.zeros_like(o[ray])[:, None], fbox[fc])
+        cross &= (face >= 0) & f_valid[fc] & (face != fid[ray].long()[:, None])
+        total += int(cross.sum())
+    return total
+
+
+def occlusion_bound(args, kwargs, occ, hier, lists, rows, out_bytes):
+    """(bound_ms, bound_by): a yardstick that does not depend on the broad
+    phase under test.  Operations: for each live ray that no face blocks,
+    the faces its segment's box test admits (``crossing_tests``); for each
+    blocked ray, 1; K1_OPS_PER_TEST fp32 operations a test.  Bytes: the
+    inputs read once and the outputs (out_bytes) written once.  Over the
+    published H100 peaks."""
+    o, d, t_self, fid = args[:4]
+    t_cut = t_self * (1.0 - kwargs["t_rel"])
+    live = t_cut > kwargs["t_min"]
+    tests = crossing_tests(o, d, t_cut, fid, live & ~occ, *args[-3:], hier,
+                           lists, rows) + int((live & occ).sum())
+    ops_s = tests * K1_OPS_PER_TEST / FP32_OPS_PER_S
+    bytes_s = (nbytes(*args) + out_bytes) / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
 def check_k1(args, kwargs):
     """Kernel twice and plain once on the same inputs -> (occ, hist, err)."""
     from nlos_surface_optimization_torch.render import fused_kernels as fk
@@ -194,36 +278,114 @@ def check_k1(args, kwargs):
     return occ, hist, float((hist - hist_p).abs().max())
 
 
-def k1_bound(args, kwargs, occ):
-    """(bound_ms, bound_by, mean candidate groups per block): the bytes of
-    the inputs and outputs against the fp32 operations this run needs —
-    every candidate face for each live unoccluded ray (occluded rays
-    counted as one test), over the published peaks."""
+def k1_case(name, args, kwargs, reps=10, plain_reps=2):
+    """One K1 case: masks, histogram and per-block candidate counts against
+    the plain versions, then the times -> record."""
     from nlos_surface_optimization_torch.render import fused_kernels as fk
 
-    o, d, t_self, fid, contrib, bins, v, f, f_valid, Lc, Bf = args
-    counts, _, nbs = fk.broad_phase(o, d, t_self, Lc, v, f, f_valid,
-                                    ka_max=fk.KA_MAX)
-    ng = -(-f.shape[0] // fk.GF)
-    groups = torch.where(counts > fk.KA_MAX, ng, counts).double()
-    R = o.shape[0]
-    rs = R // Lc
-    pad = nbs * fk.RB - rs
-    live = t_self * (1.0 - kwargs["t_rel"]) > kwargs["t_min"]
-    free = torch.nn.functional.pad((live & ~occ).reshape(Lc, rs), (0, pad))
-    hit = torch.nn.functional.pad((live & occ).reshape(Lc, rs), (0, pad))
-    per_block_free = free.reshape(Lc * nbs, fk.RB).sum(1).double()
-    tests = float((per_block_free * groups * fk.GF).sum()) + float(hit.sum())
-    ops_s = tests * K1_OPS_PER_TEST / FP32_OPS_PER_S
-    moved = nbytes(o, d, t_self, fid, contrib, bins, v, f, f_valid) + R \
-        + Lc * Bf * 4
-    bytes_s = moved / HBM_BYTES_PER_S
-    bound = max(ops_s, bytes_s) * 1e3
-    return bound, "operations" if ops_s >= bytes_s else "bytes", \
-        float(groups.mean())
+    occ, _, err = check_k1(args, kwargs)
+    o, d, t_self, fid, contrib, bins, v, f, fv, Lc, Bf = args
+    hier = fk.face_hierarchy(v, f, fv)
+    kargs = args[:6] + (hier, Lc, Bf)
+    counts = fk.kernel_call(*kargs, **kwargs)[2]
+    want, lists, nbs = fk.broad_phase(o, d, t_self, Lc, hier)
+    bad = int((counts != want).sum())
+    require(bad == 0, f"K1 {name}: candidate counts differ from the plain "
+            f"broad phase in {bad} blocks")
+    _, _, blk_bins, blk_vals = fk.occlusion_call(*kargs, **kwargs)
+    bound_ms, bound_by = occlusion_bound(
+        args[:9], kwargs, occ, hier, lists, block_rays(o.shape[0], Lc, nbs),
+        o.shape[0] + Lc * Bf * 4)
+    rec = dict(
+        case=name, rays=o.shape[0], faces=f.shape[0], sources=Lc, bins=Bf,
+        occluded=int(occ.sum()), max_abs_err=err,
+        mean_candidate_groups=float(counts.double().mean()),
+        ms=timed_ms(lambda: fk.occluded_splat(*args, **kwargs, hier=hier),
+                    reps),
+        kernel_ms=timed_ms(lambda: fk.kernel_call(*kargs, **kwargs), reps),
+        occlusion_ms=timed_ms(lambda: fk.occlusion_call(*kargs, **kwargs),
+                              reps),
+        reduce_ms=timed_ms(lambda: fk.reduce_call(blk_bins, blk_vals, Lc,
+                                                  Bf), reps),
+        prep_ms=timed_ms(lambda: fk.face_hierarchy(v, f, fv), reps),
+        plain_ms=timed_ms(lambda: fk.occluded_splat_plain(*args, **kwargs),
+                          plain_reps),
+        bound_ms=bound_ms, bound_by=bound_by)
+    emit("k1", **rec)
+    return rec, occ
 
 
-def phase_k1(dev, chunk_inputs):
+def large_scene():
+    """The loop's largest meshes: a Morton-ordered n = 110 height field,
+    23,762 faces."""
+    from nlos_surface_optimization_torch.geometry.accel import (
+        morton_order_faces,
+    )
+
+    v, f, _ = height_field(LARGE_N, 0.35, 0.6, 0.01, 0)
+    return v, morton_order_faces(v, f)
+
+
+def loop_chunk(F, spt):
+    """The loop's source chunk: 256 halved while the chunk exceeds 2 M rays
+    (outer_loop._current_cfg)."""
+    chunk = 256
+    while chunk > max(1, 2_000_000 // (F * spt)):
+        chunk //= 2
+    return chunk
+
+
+def gt_case_inputs(dev):
+    """K1 at the ground-truth render's shapes: the loop scene's GT mesh
+    (Morton-ordered), GT_SAMPLES samples, GT_SOURCES sources from the
+    middle of the scan, refine 10 (12,000 fine bins)."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.experiments import run as runner
+    from nlos_surface_optimization_torch.experiments.scenes import SCENES
+    from nlos_surface_optimization_torch.geometry.accel import (
+        morton_order_faces,
+    )
+    from nlos_surface_optimization_torch.render import core
+
+    v, f = runner._load_gt_mesh(SCENES[SCENE], None)
+    f = morton_order_faces(v, f)
+    cfg = pt.RenderConfig(**{**FLAGSHIP, "num_samples": GT_SAMPLES})
+    spt = cfg.samples_per_face(f.shape[0])
+    lighting, lnormal = pt.make_confocal_scan(SCAN)
+    mid = lighting.shape[0] // 2
+    sl = slice(mid, mid + GT_SOURCES)
+    _, args, kwargs = core.splat_inputs(
+        pt.make_mesh(v, f, device=dev), torch.from_numpy(lighting[sl]).to(dev),
+        torch.from_numpy(lnormal[sl]).to(dev), pt.key(0), cfg, spt,
+        cfg.bin_refine_resolution)
+    return args, kwargs
+
+
+def chunk_inputs(dev, v, f, splat):
+    """One chunk of the loop's render at the flagship settings on mesh v, f:
+    (args, kwargs) of K1 (splat) or K3."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.render import core
+
+    cfg = pt.RenderConfig(**FLAGSHIP)
+    spt = cfg.samples_per_face(f.shape[0])
+    chunk = loop_chunk(f.shape[0], spt)
+    lighting, lnormal = pt.make_confocal_scan(SCAN)
+    lc = torch.from_numpy(lighting[:chunk]).to(dev)
+    nc = torch.from_numpy(lnormal[:chunk]).to(dev)
+    mesh = pt.make_mesh(v, f, device=dev)
+    if splat:
+        _, args, kwargs = core.splat_inputs(mesh, lc, nc, pt.key(0), cfg, spt,
+                                            cfg.forward_refine)
+    else:
+        _, args, kwargs = core.occlusion_inputs(mesh, lc, nc, pt.key(0), cfg,
+                                                spt)
+    return args, kwargs
+
+
+def phase_k1(dev, chunk_inputs_):
+    """K1 on a small grazing scene, the flagship chunk, the loop's largest
+    chunk and the GT render's shapes."""
     from nlos_surface_optimization_torch.geometry.mesh import make_mesh
     from nlos_surface_optimization_torch.render import fused_kernels as fk
 
@@ -234,27 +396,18 @@ def phase_k1(dev, chunk_inputs):
         small.v, small.f, small.f_valid, 3, 384)
     occ_s, _, err_s = check_k1(args, dict(t_rel=1e-4, t_min=1e-6))
     require(bool(occ_s.any()), "K1 small case: no ray is occluded")
+    emit("k1", case="small", max_abs_err=err_s, occluded=int(occ_s.sum()))
 
-    args, kwargs = chunk_inputs
-    occ, _, err = check_k1(args, kwargs)
-    ms = timed_ms(lambda: fk.occluded_splat(*args, **kwargs), 10)
-    plain_ms = timed_ms(lambda: fk.occluded_splat_plain(*args, **kwargs), 2)
-    o, d, t_self, fid, contrib, bins, v_, f_, fv, Lc, Bf = args
-    broad_ms = timed_ms(lambda: fk.broad_phase(o, d, t_self, Lc, v_, f_, fv,
-                                               ka_max=fk.KA_MAX), 10)
-    counts, lists, nbs = fk.broad_phase(o, d, t_self, Lc, v_, f_, fv,
-                                        ka_max=fk.KA_MAX)
-    soup = fk.face_soup(v_, f_, fv, -(-f_.shape[0] // fk.GF))
-    kernel_ms = timed_ms(lambda: fk.kernel_call(
-        o, d, t_self, fid, contrib, bins, soup, counts, lists, nbs, Lc, Bf,
-        **kwargs), 10)
-    bound_ms, bound_by, groups = k1_bound(args, kwargs, occ)
-    emit("k1", small_max_abs_err=err_s, max_abs_err=err, rays=o.shape[0],
-         occluded=int(occ.sum()), mean_candidate_groups=groups, ms=ms,
-         kernel_ms=kernel_ms, broad_phase_ms=broad_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-         bound_by=bound_by)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by), occ
+    main, occ = k1_case("flagship", *chunk_inputs_)
+    lv, lf = large_scene()
+    k1_case("large", *chunk_inputs(dev, lv, lf, True), reps=5, plain_reps=1)
+    gt, _ = k1_case("gt", *gt_case_inputs(dev))
+    ranges, slabs = fk.reduce_plan(
+        gt["sources"], gt["bins"], -(-gt["rays"] // gt["sources"] // fk.RB),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    require(ranges * slabs > 1, "K1 gt case: one reduce block a source")
+    return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by")}, occ
 
 
 # ------------------------------------------------------------------ K2
@@ -323,52 +476,11 @@ def surface_rays(v, f, n, seed):
             t.astype(np.float32), fid.astype(np.int32))
 
 
-def k3_plan(args):
-    """The wrapper's plan: the face soup and, per ray group, (r0, r1,
-    counts, lists) from the broad phase."""
-    from nlos_surface_optimization_torch.render import fused_kernels as fk
-    from nlos_surface_optimization_torch.render import occl_kernels as ok
-
-    o, d, t_self, _, v, f, f_valid = args
-    ng = -(-f.shape[0] // fk.GF)
-    boxes = fk._group_boxes(v, f, f_valid, ng, fk.GF)
-    plan = [(r0, r1) + ok.broad_phase(o[r0:r1], d[r0:r1], t_self[r0:r1],
-                                      boxes)
-            for r0, r1 in ok.ray_groups(o.shape[0], ng)]
-    return fk.face_soup(v, f, f_valid, ng), plan
-
-
-def k3_bound(args, kwargs, occ, plan):
-    """(bound_ms, bound_by, mean candidate groups per block): K1's count —
-    every candidate face for each live unoccluded ray, one test for an
-    occluded ray, 48 fp32 operations a test — against the bytes of the
-    inputs read once and the 1-byte mask written once."""
-    from nlos_surface_optimization_torch.render import fused_kernels as fk
-    from nlos_surface_optimization_torch.render import occl_kernels as ok
-
-    o, d, t_self = args[:3]
-    ng = -(-args[5].shape[0] // fk.GF)
-    live = t_self * (1.0 - kwargs["t_rel"]) > kwargs["t_min"]
-    free = live & ~occ
-    tests, groups = float((live & occ).sum()), []
-    for r0, r1, counts, _ in plan:
-        g = torch.where(counts > ok.KA_MAX, ng, counts).double()
-        pad = counts.shape[0] * ok.RB - (r1 - r0)
-        per_block = torch.nn.functional.pad(free[r0:r1], (0, pad)).reshape(
-            -1, ok.RB).sum(1).double()
-        tests += float((per_block * g * fk.GF).sum())
-        groups.append(g)
-    ops_s = tests * K1_OPS_PER_TEST / FP32_OPS_PER_S
-    bytes_s = (nbytes(*args) + o.shape[0]) / HBM_BYTES_PER_S
-    return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes",
-            float(torch.cat(groups).mean()))
-
-
-def check_k3(name, args, kwargs, plain_reps=2):
+def check_k3(name, args, kwargs, reps=10, plain_reps=2):
     """Kernel twice and plain once on the same inputs; equal masks; the
-    times of the wrapper, its broad phase, its kernel launches and the
-    plain version -> record."""
+    kernel's per-block candidate counts equal the plain broad phase's; the
+    times of the wrapper, its kernel, the hierarchy and the plain version
+    -> record."""
     from nlos_surface_optimization_torch.render import fused_kernels as fk
     from nlos_surface_optimization_torch.render import occl_kernels as ok
 
@@ -379,39 +491,40 @@ def check_k3(name, args, kwargs, plain_reps=2):
     require(torch.equal(occ, occ2), f"K3 {name}: two launches differ")
     bad = int((occ != occ_p).sum())
     require(bad == 0, f"K3 {name}: mask differs from plain ({bad} rays)")
-    o, d, t_self, fid = args[:4]
-    soup, plan = k3_plan(args)
-    out = torch.empty(o.shape[0], dtype=torch.uint8, device=o.device)
-
-    def kernels():
-        for r0, r1, counts, lists in plan:
-            ok.kernel_call(o[r0:r1], d[r0:r1], t_self[r0:r1], fid[r0:r1],
-                           soup, counts, lists, kwargs["t_rel"],
-                           kwargs["t_min"], out[r0:r1])
-
-    bound_ms, bound_by, groups = k3_bound(args, kwargs, occ, plan)
-    rec = dict(case=name, rays=o.shape[0], faces=args[5].shape[0],
-               ray_groups=len(plan), occluded=int(occ.sum()),
-               mean_candidate_groups=groups, max_abs_err=bad,
-               ms=timed_ms(lambda: ok.segment_occluded(*args, **kwargs), 10),
-               kernel_ms=timed_ms(kernels, 10),
-               broad_phase_ms=timed_ms(lambda: k3_plan(args), 10),
-               plain_ms=timed_ms(lambda: fk.occluded_plain(*args, **kwargs),
-                                 plain_reps),
-               bound_ms=bound_ms, bound_by=bound_by)
+    o, d, t_self, fid, v, f, fv = args
+    hier = fk.face_hierarchy(v, f, fv)
+    counts = ok.kernel_call(o, d, t_self, fid, hier, **kwargs)[1]
+    want, lists = ok.broad_phase(o, d, t_self, hier)
+    nbad = int((counts != want).sum())
+    require(nbad == 0, f"K3 {name}: candidate counts differ from the plain "
+            f"broad phase in {nbad} blocks")
+    bound_ms, bound_by = occlusion_bound(args, kwargs, occ, hier, lists,
+                                         block_rays(o.shape[0], None),
+                                         o.shape[0])
+    rec = dict(
+        case=name, rays=o.shape[0], faces=f.shape[0],
+        occluded=int(occ.sum()), max_abs_err=bad,
+        mean_candidate_groups=float(counts.double().mean()),
+        ms=timed_ms(lambda: ok.segment_occluded(*args, **kwargs, hier=hier),
+                    reps),
+        kernel_ms=timed_ms(lambda: ok.kernel_call(o, d, t_self, fid, hier,
+                                                  **kwargs), reps),
+        prep_ms=timed_ms(lambda: fk.face_hierarchy(v, f, fv), reps),
+        plain_ms=timed_ms(lambda: fk.occluded_plain(*args, **kwargs),
+                          plain_reps),
+        bound_ms=bound_ms, bound_by=bound_by)
     emit("k3", **rec)
     return rec, occ
 
 
 def phase_k3(dev, v, f):
     """K3 on grazing rays (small scene), on one render_intensity chunk at
-    the loop's culling shapes (flagship mesh v, f), and on a height field
-    above 65,536 faces."""
+    the loop's culling shapes (flagship mesh v, f), on the loop's largest
+    chunk, and on a height field above 65,536 faces."""
     import nlos_surface_optimization_torch as pt
     from nlos_surface_optimization_torch.geometry.accel import (
         morton_order_faces,
     )
-    from nlos_surface_optimization_torch.render import core
 
     kw = dict(t_rel=1e-4, t_min=1e-6)
     sv, sf, _ = small_scene()
@@ -421,19 +534,10 @@ def phase_k3(dev, v, f):
     _, occ = check_k3("graze", tuple(rays) + small[:3], kw)
     require(bool(occ.any()), "K3 graze case: no ray is occluded")
 
-    # render_intensity's chunk as the loop cuts it: 256 sources halved
-    # while the chunk exceeds 2 M rays (outer_loop._current_cfg)
-    cfg = pt.RenderConfig(**FLAGSHIP)
-    spt = cfg.samples_per_face(f.shape[0])
-    chunk = 256
-    while chunk > max(1, 2_000_000 // (f.shape[0] * spt)):
-        chunk //= 2
-    lighting, lnormal = pt.make_confocal_scan(SCAN)
-    lc = torch.from_numpy(lighting[:chunk]).to(dev)
-    nc = torch.from_numpy(lnormal[:chunk]).to(dev)
-    _, args, kwargs = core.occlusion_inputs(
-        pt.make_mesh(v, f, device=dev), lc, nc, pt.key(0), cfg, spt)
-    main, _ = check_k3("loop_chunk", args, kwargs)
+    main, _ = check_k3("loop_chunk", *chunk_inputs(dev, v, f, False))
+    lv, lf = large_scene()
+    check_k3("large", *chunk_inputs(dev, lv, lf, False), reps=5,
+             plain_reps=1)
 
     bv, bf, _ = height_field(200, 0.35, 0.6, 0.01, 1)
     bf = morton_order_faces(bv, bf)
@@ -700,10 +804,7 @@ def phase_loop(dev, workdir, rec):
                    res * res, 16 if res >= 256 else 8)
     want = {"occluded_splat": gt + sum(r["chunks"] for r in steps),
             "backward_face_sums": sum(r["chunks"] for r in steps),
-            "segment_occluded": sum(
-                r["chunks"] * len(ok.ray_groups(
-                    r["chunk_rays"], -(-r["padded_faces"] // fk.GF)))
-                for r in remeshes)}
+            "segment_occluded": sum(r["chunks"] for r in remeshes)}
     require(launches == want, f"launch counts {launches}, expected {want}")
     init = next(m for _, m in rec.lines if m.startswith("init mesh"))
     emit("loop", scene=SCENE, scan=f"{res}x{res}", seconds=total,

@@ -118,6 +118,13 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card that holds ``device``."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream(device) -> ctypes.c_void_p:
     import torch
 

@@ -8,6 +8,7 @@ mesh, Morton-ordered ones are patch shaped.  Copied from the JAX package.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _morton3(x: np.ndarray, bits: int = 10) -> np.ndarray:
@@ -37,3 +38,26 @@ def morton_order_faces(v: np.ndarray, f: np.ndarray) -> np.ndarray:
     span = np.maximum(cent.max(axis=0) - lo, 1e-12)
     codes = _morton3((cent - lo) / span)
     return f[np.argsort(codes, kind="stable")]
+
+
+def morton_order_torch(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """``morton_order_faces`` as a permutation [F] int64, on the tensors'
+    device: the same f32 steps as the numpy version (true divisions), so
+    faces already in that order get the identity."""
+    F = f.shape[0]
+    if F < 2:
+        return torch.arange(F, device=f.device)
+    three = torch.full((), 3.0, dtype=v.dtype, device=v.device)
+    cent = (v[f[:, 0]] + v[f[:, 1]] + v[f[:, 2]]) / three
+    lo = cent.amin(dim=0)
+    span = torch.clamp(cent.amax(dim=0) - lo, min=1e-12)
+    q = torch.clamp(((cent - lo) / span * 1023).to(torch.int64), 0, 1023)
+    code = torch.zeros(F, dtype=torch.int64, device=f.device)
+    for axis in range(3):
+        x = q[:, axis]
+        for shift, mask in ((32, 0x1F00000000FFFF), (16, 0x1F0000FF0000FF),
+                            (8, 0x100F00F00F00F00F), (4, 0x10C30C30C30C30C3),
+                            (2, 0x1249249249249249)):
+            x = (x | (x << shift)) & mask
+        code |= x << axis
+    return torch.sort(code, stable=True).indices

@@ -5,9 +5,11 @@
   inverse_render     (transient, vertex gradient [V,3], pathlengths)
 
 Sources are processed in chunks of cfg.source_chunk by a Python loop;
-the ``*_host`` names are the same functions (in the JAX package they
-differ in where the chunk loop runs).  Everything runs on the mesh's
-device; numpy inputs are moved there.
+on the card the kernels' view of the mesh (fused_kernels.face_hierarchy)
+is built once per call and handed to every chunk.  The ``*_host`` names
+are the same functions (in the JAX package they differ in where the
+chunk loop runs).  Everything runs on the mesh's device; numpy inputs
+are moved there.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..config import RenderConfig, check_backends
 from ..geometry.mesh import Mesh
+from .fused_kernels import FaceHierarchy, face_hierarchy
 from .core import (
     backward_chunk,
     forward_chunk,
@@ -60,14 +63,24 @@ def _chunks(lighting, lighting_normal, cfg: RenderConfig):
             L, Lc, nc)
 
 
+def _hierarchy(mesh: Mesh, cfg: RenderConfig) -> Optional[FaceHierarchy]:
+    """The kernels' view of the mesh, built once per call for every chunk;
+    None where no kernel reads it: on the CPU (the wrappers run their
+    plain versions) and with occl_backend 'jnp'."""
+    if mesh.device.type != "cuda" or cfg.occl_backend == "jnp":
+        return None
+    return face_hierarchy(mesh.v, mesh.f, mesh.f_valid)
+
+
 def _trace_and_forward(mesh: Mesh, lc, nc_, key, cfg: RenderConfig, spt: int,
-                       off: int, refine: int):
+                       off: int, refine: int, hier: Optional[FaceHierarchy]):
     """(RayBatch, fine histogram) for one source chunk, through the fused
     kernel or the eager trace + splat pair (same semantics)."""
     if cfg.occl_backend in ("auto", "fused"):  # K1; 'pallas', 'jnp': below
         return trace_forward_fused(mesh, lc, nc_, key, cfg, spt, refine,
-                                   source_offset=off)
-    rays = trace_chunk(mesh, lc, nc_, key, cfg, spt, source_offset=off)
+                                   source_offset=off, hier=hier)
+    rays = trace_chunk(mesh, lc, nc_, key, cfg, spt, source_offset=off,
+                       hier=hier)
     return rays, forward_chunk(rays, nc_, cfg, spt, refine)
 
 
@@ -83,8 +96,10 @@ def render_transient(mesh: Mesh, lighting, lighting_normal,
     r = cfg.bin_refine_resolution if refine is None else refine
     lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
                                   _as_tensor(lighting_normal, dev), cfg)
+    hier = _hierarchy(mesh, cfg)
     fine = torch.cat([
-        _trace_and_forward(mesh, lit[i], nrm[i], key, cfg, spt, i * Lc, r)[1]
+        _trace_and_forward(mesh, lit[i], nrm[i], key, cfg, spt, i * Lc, r,
+                           hier)[1]
         for i in range(nc)], dim=0)[:L]
     t = smooth_and_coarsen(fine, cfg.distance_resolution, r, cfg.sigma_bin)
     return t, pathlengths(cfg, dev)
@@ -104,10 +119,11 @@ def render_intensity(mesh: Mesh, lighting, lighting_normal,
     spt = _spt(cfg, mesh)
     lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
                                   _as_tensor(lighting_normal, dev), cfg)
+    hier = _hierarchy(mesh, cfg)
     out = None
     for i in range(nc):
         rays = trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
-                           source_offset=i * Lc)
+                           source_offset=i * Lc, hier=hier)
         part = intensity_chunk(rays, nrm[i], cfg, spt)
         out = part if out is None else out + part
     return out
@@ -131,11 +147,13 @@ def _use_fused_bwd(cfg: RenderConfig) -> bool:
 
 
 def _fused_chunk_body(mesh: Mesh, lc, nc_, off: int, key, dat, w,
-                      cfg: RenderConfig, spt: int):
+                      cfg: RenderConfig, spt: int,
+                      hier: Optional[FaceHierarchy]):
     """(transient rows, vertex gradient) for one source chunk: one trace
     serves the forward and the backward (the difference is row-local)."""
     refine = cfg.forward_refine
-    rays, fine = _trace_and_forward(mesh, lc, nc_, key, cfg, spt, off, refine)
+    rays, fine = _trace_and_forward(mesh, lc, nc_, key, cfg, spt, off, refine,
+                                    hier)
     transient = smooth_and_coarsen(fine, cfg.distance_resolution, refine,
                                    cfg.sigma_bin)
     diff = _difference(dat, transient, w, cfg)
@@ -165,11 +183,13 @@ def inverse_render(mesh: Mesh, data, weight, lighting, lighting_normal,
     data_p = torch.nn.functional.pad(_as_tensor(data, dev), (0, 0, 0, pad))
     weight_p = torch.nn.functional.pad(_as_tensor(weight, dev),
                                        (0, 0, 0, pad))
+    hier = _hierarchy(mesh, cfg)
     parts, grad = [], None
     for i in range(nc):
         rows = slice(i * Lc, (i + 1) * Lc)
         t, g = _fused_chunk_body(mesh, lit[i], nrm[i], i * Lc, key,
-                                 data_p[rows], weight_p[rows], cfg, spt)
+                                 data_p[rows], weight_p[rows], cfg, spt,
+                                 hier)
         parts.append(t)
         grad = g if grad is None else grad + g
     transient = torch.cat(parts, dim=0)[:L]

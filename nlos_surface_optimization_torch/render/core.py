@@ -151,18 +151,21 @@ def occlusion_inputs(mesh: Mesh, lighting, lighting_normal, key,
 
 
 def trace_chunk(mesh: Mesh, lighting, lighting_normal, key, cfg: RenderConfig,
-                spt: int, source_offset: int = 0) -> RayBatch:
+                spt: int, source_offset: int = 0, hier=None) -> RayBatch:
     """Sample every face from every source in the chunk and run the
     visibility query: the standalone visibility kernel
-    (render/occl_kernels.segment_occluded, its plain version on the CPU),
-    or with occl_backend 'jnp' the eager divide-based segment_occluded."""
+    (render/occl_kernels.segment_occluded, its plain version on the CPU;
+    ``hier`` the mesh's fused_kernels.face_hierarchy, built per call when
+    None), or with occl_backend 'jnp' the eager divide-based
+    segment_occluded."""
     rays_pre, args, kwargs = occlusion_inputs(mesh, lighting, lighting_normal,
                                               key, cfg, spt, source_offset)
     if cfg.occl_backend == "jnp":
-        occl = segment_occluded
+        occ = segment_occluded(*args, **kwargs)
     else:
         from .occl_kernels import segment_occluded as occl
-    occ = occl(*args, **kwargs)
+
+        occ = occl(*args, **kwargs, hier=hier)
     return rays_pre._replace(
         valid=rays_pre.valid & ~occ.reshape(rays_pre.h.shape))
 
@@ -204,9 +207,10 @@ def splat_inputs(mesh: Mesh, lighting, lighting_normal, key,
 
 def trace_forward_fused(mesh: Mesh, lighting, lighting_normal, key,
                         cfg: RenderConfig, spt: int, refine: int,
-                        source_offset: int = 0):
+                        source_offset: int = 0, hier=None):
     """(RayBatch, fine histogram [Lc, num_bins*refine]) through the fused
-    occlusion + splat kernel (render/fused_kernels.occluded_splat).
+    occlusion + splat kernel (render/fused_kernels.occluded_splat; ``hier``
+    as for trace_chunk).
 
     Same semantics as trace_chunk + forward_chunk."""
     from .fused_kernels import occluded_splat
@@ -214,7 +218,7 @@ def trace_forward_fused(mesh: Mesh, lighting, lighting_normal, key,
     rays_pre, args, kwargs = splat_inputs(mesh, lighting, lighting_normal,
                                           key, cfg, spt, refine,
                                           source_offset)
-    occ, hist = occluded_splat(*args, **kwargs)
+    occ, hist = occluded_splat(*args, **kwargs, hier=hier)
     rays = rays_pre._replace(
         valid=rays_pre.valid & ~occ.reshape(rays_pre.h.shape))
     return rays, hist

@@ -11,27 +11,47 @@ For rays ordered (source, face, sample) it returns
              fine bin k.
 
 On a CUDA tensor it runs csrc/occluded_splat.cu: one 128-ray block of one
-source per CUDA block, tested against the 8-face groups of that block's
-candidate list (built here by the broad phase, as torch ops), then a
-deterministic splat (block-sorted runs, reduced per source in block
-order).  On a CPU tensor it runs ``occluded_splat_plain``, which tests
-every face.
+source per CUDA block, whose broad phase (over the ``face_hierarchy`` of
+8-face groups and 64-face supergroups, built once per render) and narrow
+phase both run in the kernel, then a deterministic splat (block-sorted
+runs, reduced per (bin range, source, slab of blocks) in block order, the
+slabs then added in order).  On a CPU tensor it
+runs ``occluded_splat_plain``, which tests every face.  ``broad_phase`` is
+the plain version of the kernel's candidate lists, pass by pass, and
+``narrow_plain`` of its narrow phase on one pass (the per-ray group cull
+included).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import _cuda
+from ..geometry.accel import morton_order_torch
 
 RB = 128          # rays per block; a block never spans two sources
-GF = 8            # faces per candidate group
-KA_MAX = 256      # candidate-list slots per block; more means a full scan
-SOUP_W = 12       # floats per face in the soup: p1, e1, e2, valid, pad
+GF = 8            # faces per group
+SG = 8            # groups per supergroup (64 faces)
+LIST_CAP = 1024   # groups a block lists before it tests them (one pass)
+REDUCE_SLAB = 128  # block runs one reduce block adds; slabs then add in order
+SOUP_W = 12       # floats per face in the soup: p1, e1, e2, valid, id, pad
 EPS_DET = 1e-12
 _SMEM_MAX = 227 * 1024
+
+
+class FaceHierarchy(NamedTuple):
+    """What the kernels read of a mesh: its faces in Morton order, padded
+    to whole supergroups -- the face soup, each soup face's index in the
+    mesh, and the boxes (lo | hi over VALID vertices; an empty box has
+    lo > hi) of the 8-face groups and of the 64-face supergroups."""
+
+    soup: torch.Tensor          # [ns*SG*GF, SOUP_W] f32; column 10: faces
+    faces: torch.Tensor         # [ns*SG*GF] int32 mesh face (-1: padding)
+    group_boxes: torch.Tensor   # [ns*SG, 6] f32
+    super_boxes: torch.Tensor   # [ns, 6] f32
 
 
 def face_soup(v, f, f_valid, num_groups: int):
@@ -63,51 +83,110 @@ def _group_boxes(v, f, f_valid, num_groups: int, gf: int):
     return torch.cat([lo, hi], dim=1)
 
 
-def _slab_candidates(a, b, half, boxes, l_store: int):
-    """Swept-box-vs-AABB broad phase -> (counts [nb], lists [nb, l_store]).
+def face_hierarchy(v, f, f_valid) -> FaceHierarchy:
+    """The kernels' view of a mesh: build it once per render and hand it
+    to every chunk.  The faces go in Morton order (the identity for a mesh
+    already in that order, as the loop's and the GT's are), so that groups
+    and supergroups are compact whatever order the caller's faces are in
+    (the loop renders the cull intensities in geomlib's order).  Torch ops
+    on the mesh's device: a sort of F codes, the rest O(F)."""
+    F = f.shape[0]
+    ns = -(-F // (GF * SG))
+    order = morton_order_torch(v, f)
+    fo, fvo = f[order], f_valid[order]
+    faces = torch.full((ns * SG * GF,), -1, dtype=torch.int32,
+                       device=f.device)
+    faces[:F] = order.to(torch.int32)
+    soup = face_soup(v, fo, fvo, ns * SG)
+    soup[:, 10] = faces.view(torch.float32)
+    groups = _group_boxes(v, fo, fvo, ns * SG, GF)
+    g = groups.reshape(ns, SG, 6)
+    supers = torch.cat([g[..., :3].amin(dim=1), g[..., 3:].amax(dim=1)], 1)
+    return FaceHierarchy(soup, faces, groups.contiguous(),
+                         supers.contiguous())
 
-    a/b [nb,3] segment endpoints, half [nb,3] inflation of the boxes,
-    boxes [ng,6].  Lists hold the candidate group ids in increasing order,
-    padded with the sentinel ng; counts above l_store mean: scan all."""
-    ng = boxes.shape[0]
-    lo = boxes[None, :, 0:3] - (half[:, None, :] + 1e-5)
-    hi = boxes[None, :, 3:6] + (half[:, None, :] + 1e-5)
-    ab = (b - a)[:, None, :]
+
+def check_hierarchy(hier: FaceHierarchy, num_faces: int, device) -> None:
+    ns = -(-num_faces // (GF * SG))
+    for name, t, dt, shape in (
+            ("soup", hier.soup, torch.float32, (ns * SG * GF, SOUP_W)),
+            ("faces", hier.faces, torch.int32, (ns * SG * GF,)),
+            ("group_boxes", hier.group_boxes, torch.float32, (ns * SG, 6)),
+            ("super_boxes", hier.super_boxes, torch.float32, (ns, 6))):
+        _check(f"hier.{name}", t, dt, shape)
+        if t.device != device:
+            raise ValueError(f"hier.{name} is on {t.device}, rays on {device}")
+
+
+def _slab_hits(a, b, half, boxes):
+    """The kernels' slab test, operation for operation, broadcast over
+    pairs: segment a -> b [..., 3] widened by half [..., 3] (+ 1e-5)
+    crosses box lo | hi [..., 6]; an empty box is never crossed."""
+    lo = boxes[..., 0:3] - (half + 1e-5)
+    hi = boxes[..., 3:6] + (half + 1e-5)
+    ab = b - a
     par = torch.abs(ab) <= 1e-30
     inv = torch.where(par, 0.0, 1.0 / ab)
-    t0 = (lo - a[:, None, :]) * inv
-    t1 = (hi - a[:, None, :]) * inv
+    t0 = (lo - a) * inv
+    t1 = (hi - a) * inv
     tmin = torch.minimum(t0, t1)
     tmax = torch.maximum(t0, t1)
-    inside = (a[:, None, :] >= lo) & (a[:, None, :] <= hi)
+    inside = (a >= lo) & (a <= hi)
     inf = torch.tensor(float("inf"), device=a.device)
     tmin = torch.where(par, torch.where(inside, -inf, inf), tmin)
     tmax = torch.where(par, torch.where(inside, inf, -inf), tmax)
     enter = torch.clamp(tmin.amax(dim=-1), min=0.0)
     exit_ = torch.clamp(tmax.amin(dim=-1), max=1.0)
-    empty = (boxes[:, 0:3] > boxes[:, 3:6]).any(dim=1)
-    cand = (enter <= exit_) & ~empty[None, :]
-    counts = cand.sum(dim=1, dtype=torch.int32)
-    iota = torch.arange(ng, dtype=torch.int32, device=a.device)[None, :]
-    idx = torch.where(cand, iota, ng)
-    k = min(ng, l_store)
-    lists = torch.sort(idx, dim=1).values[:, :k]
-    if k < l_store:
-        lists = torch.nn.functional.pad(lists, (0, l_store - k), value=ng)
-    return counts, lists.to(torch.int32).contiguous()
+    empty = (boxes[..., 0:3] > boxes[..., 3:6]).any(dim=-1)
+    return (enter <= exit_) & ~empty
 
 
-def broad_phase(o, d, t_self, Lc: int, v, f, f_valid, ka_max: int = KA_MAX):
-    """Per 128-ray block of one source: (counts [Lc*nbs] int32, lists
-    [Lc*nbs, ka_max] int32, nbs).  The block's segments run from the
-    source (one point per block) to the box around its live endpoints;
-    dead rays (t == 0) do not widen the box."""
+def hier_candidates(a, b, half, live, hier: FaceHierarchy):
+    """Plain version of the kernels' broad phase for nb blocks, block k
+    bounded by segment a[k] -> b[k] widened by half[k] ([nb, 3] each; a
+    block with live[k] False lists nothing) -> (counts [nb] int32, lists
+    [nb, max count] int32).
+
+    lists[k, :counts[k]] are block k's candidate groups in the kernel's
+    order (supergroups that pass, then their groups that pass: increasing),
+    padded with -1.  The kernel tests them in passes of its list capacity
+    cap: pass p is lists[k, p*cap:(p+1)*cap]."""
+    nb, dev = a.shape[0], a.device
+    ns = hier.super_boxes.shape[0]
+    step = max(1, (1 << 22) // max(ns, 1))   # ~4 M block x supergroup pairs
+    blk, gid = [], []
+    for b0 in range(0, nb, step):
+        s = slice(b0, min(b0 + step, nb))
+        sup = _slab_hits(a[s, None], b[s, None], half[s, None],
+                         hier.super_boxes[None]) & live[s, None]
+        bi, si = torch.nonzero(sup, as_tuple=True)
+        g = si[:, None] * SG + torch.arange(SG, device=dev)       # [P, SG]
+        hit = _slab_hits(a[s][bi][:, None], b[s][bi][:, None],
+                         half[s][bi][:, None], hier.group_boxes[g])
+        blk.append((bi + b0)[:, None].expand_as(g)[hit])
+        gid.append(g[hit])
+    blk = torch.cat(blk) if blk else torch.zeros(0, dtype=torch.int64,
+                                                 device=dev)
+    gid = torch.cat(gid) if gid else blk
+    counts = torch.bincount(blk, minlength=nb)
+    width = int(counts.max()) if nb else 0
+    pos = torch.arange(blk.shape[0], device=dev) - (
+        torch.cumsum(counts, 0) - counts)[blk]
+    lists = torch.full((nb, width), -1, dtype=torch.int32, device=dev)
+    lists[blk, pos] = gid.to(torch.int32)
+    return counts.to(torch.int32), lists
+
+
+def block_hulls(o, d, t_self, Lc: int):
+    """Per 128-ray block of one source (Lc*nbs blocks): (a, b, half [.,3],
+    live [.], nbs).  The block's segments run from its source (one point)
+    to the box around its live endpoints, b its centre and half its
+    half-extents; dead rays (t == 0) widen nothing, and a block without a
+    live ray has live False."""
     R = o.shape[0]
     rs = R // Lc
     nbs = -(-rs // RB)
     pad = nbs * RB - rs
-    ng = -(-f.shape[0] // GF)
-    boxes = _group_boxes(v, f, f_valid, ng, GF)
     p_end = (o + d * t_self[:, None]).reshape(Lc, rs, 3)
     live = (t_self > 0.0).reshape(Lc, rs, 1)
     p_end = torch.nn.functional.pad(p_end, (0, 0, 0, pad))
@@ -115,13 +194,19 @@ def broad_phase(o, d, t_self, Lc: int, v, f, f_valid, ka_max: int = KA_MAX):
     pb = p_end.reshape(Lc * nbs, RB, 3)
     mb = live.reshape(Lc * nbs, RB, 1)
     a_seg = o.reshape(Lc, rs, 3)[:, 0, :].repeat_interleave(nbs, dim=0)
-    plo = torch.where(mb, pb, float("inf")).amin(dim=1)
-    phi = torch.where(mb, pb, float("-inf")).amax(dim=1)
-    none = ~mb.any(dim=1)
-    plo = torch.where(none, a_seg, plo)
-    phi = torch.where(none, a_seg, phi)
-    counts, lists = _slab_candidates(a_seg, 0.5 * (plo + phi),
-                                     0.5 * (phi - plo), boxes, ka_max)
+    any_live = mb.any(dim=1)
+    plo = torch.where(any_live, torch.where(mb, pb, float("inf")).amin(1),
+                      a_seg)
+    phi = torch.where(any_live, torch.where(mb, pb, float("-inf")).amax(1),
+                      a_seg)
+    return a_seg, 0.5 * (plo + phi), 0.5 * (phi - plo), any_live[:, 0], nbs
+
+
+def broad_phase(o, d, t_self, Lc: int, hier: FaceHierarchy):
+    """Plain version of K1's candidate lists: (counts [Lc*nbs] int32,
+    lists, nbs) as ``hier_candidates`` gives them for ``block_hulls``."""
+    a, b, half, live, nbs = block_hulls(o, d, t_self, Lc)
+    counts, lists = hier_candidates(a, b, half, live, hier)
     return counts, lists, nbs
 
 
@@ -158,6 +243,24 @@ def sign_safe_blocked(o, d, t_cut, self_fid, soup, fids, t_min: float,
     return ((dd > eps_det) & (un >= 0.0) & (vn >= 0.0) & (un + vn <= dd)
             & (val > 0.5) & (tn > t_min * dd) & (tn < t_cut * dd)
             & (fids[face] != self_fid))
+
+
+def narrow_plain(o, d, t_cut, self_fid, hier: FaceHierarchy, groups,
+                 t_min: float, eps_det: float = EPS_DET):
+    """Plain version of the kernels' narrow phase on one pass's list: [r]
+    bool, ray i blocked by a face of the listed groups [k].  As in the
+    kernel, a ray tests a group's faces only when its own segment
+    o -> o + d*t_cut crosses the group's box widened by 1e-5 (the per-ray
+    group cull, ``_slab_hits`` with no half-extent)."""
+    r, k = o.shape[0], groups.shape[0]
+    end = o + d * t_cut[:, None]
+    cross = _slab_hits(o[:, None], end[:, None], torch.zeros_like(o)[:, None],
+                       hier.group_boxes[groups][None])               # [r, k]
+    faces = (groups[:, None] * GF
+             + torch.arange(GF, device=o.device)).reshape(-1)
+    hit = sign_safe_blocked(o, d, t_cut, self_fid, hier.soup[faces],
+                            hier.faces[faces], t_min, eps_det)   # [r, k*GF]
+    return (hit.reshape(r, k, GF).any(2) & cross).any(1)
 
 
 def _face_columns(soup, rows: int):
@@ -248,13 +351,14 @@ def _check(name, t, dtype, shape):
 
 def occluded_splat(o, d, t_self, self_fid, contrib_pre, bin_idx, v, f,
                    f_valid, Lc: int, num_fine_bins: int, t_rel=1e-4,
-                   t_min=1e-6):
+                   t_min=1e-6, hier: FaceHierarchy | None = None):
     """Fused occlusion + histogram splat for one source chunk.
 
     o, d [R,3] f32; t_self [R] f32 (0 = dead ray, never occluded);
     self_fid [R] int32; contrib_pre [R] f32 (occlusion not yet applied);
     bin_idx [R] int32 in [0, num_fine_bins).  R = Lc * (rays per source),
-    ordered by source.  Returns (occluded [R] bool, hist [Lc, bins] f32).
+    ordered by source.  hier: ``face_hierarchy(v, f, f_valid)``, built here
+    when not given.  Returns (occluded [R] bool, hist [Lc, bins] f32).
     """
     if o.device.type == "cpu":
         return occluded_splat_plain(o, d, t_self, self_fid, contrib_pre,
@@ -276,46 +380,96 @@ def occluded_splat(o, d, t_self, self_fid, contrib_pre, bin_idx, v, f,
         _check(name, t, dt, shape)
         if t.device != o.device:
             raise ValueError(f"{name} is on {t.device}, rays on {o.device}")
-    if 4 * num_fine_bins > _SMEM_MAX:
-        raise ValueError(f"{num_fine_bins} fine bins exceed the splat's "
-                         "shared memory")
-    counts, lists, nbs = broad_phase(o, d, t_self, Lc, v, f, f_valid,
-                                     ka_max=KA_MAX)
-    soup = face_soup(v, f, f_valid, -(-f.shape[0] // GF))
-    return kernel_call(o, d, t_self, self_fid, contrib_pre, bin_idx, soup,
-                       counts, lists, nbs, Lc, num_fine_bins, t_rel, t_min)
+    if hier is None:
+        hier = face_hierarchy(v, f, f_valid)
+    check_hierarchy(hier, f.shape[0], o.device)
+    occ, hist, _ = kernel_call(o, d, t_self, self_fid, contrib_pre, bin_idx,
+                               hier, Lc, num_fine_bins, t_rel, t_min)
+    return occ, hist
 
 
-def kernel_call(o, d, t_self, self_fid, contrib_pre, bin_idx, soup, counts,
-                lists, nbs: int, Lc: int, num_fine_bins: int, t_rel, t_min):
-    """Launch csrc/occluded_splat.cu on checked inputs, the broad phase's
-    lists and the face soup -> (occluded [R] bool, hist [Lc, bins])."""
+def reduce_plan(Lc: int, num_fine_bins: int, nbs: int, sms: int):
+    """(ranges, slabs) of the splat reduce for Lc sources of nbs blocks:
+    slabs of REDUCE_SLAB blocks' runs, and bin ranges per source for about
+    two reduce blocks per SM, at least 128 bins a range, and each range's
+    histogram within the shared memory of a block."""
+    slabs = -(-nbs // REDUCE_SLAB)
+    want = min(-(-2 * sms // (Lc * slabs)), -(-num_fine_bins // RB))
+    return max(1, want, -(-4 * num_fine_bins // _SMEM_MAX)), slabs
+
+
+def occlusion_call(o, d, t_self, self_fid, contrib_pre, bin_idx,
+                   hier: FaceHierarchy, Lc: int, num_fine_bins: int, t_rel,
+                   t_min, cap: int = LIST_CAP):
+    """Launch K1's occlusion kernel on checked inputs -> (occ [R] uint8,
+    counts [Lc*nbs] int32: groups listed per block, summed over passes,
+    blk_bins, blk_vals: each block's sorted (bin, sum) runs)."""
     R = o.shape[0]
-    Bf = int(num_fine_bins)
+    rs = R // Lc
+    nbs = -(-rs // RB)
     nbm = Lc * nbs
     occ = torch.empty(R, dtype=torch.uint8, device=o.device)
-    hist = torch.empty((Lc, Bf), dtype=torch.float32, device=o.device)
+    counts = torch.empty(nbm, dtype=torch.int32, device=o.device)
     blk_bins = torch.empty(nbm * RB, dtype=torch.int32, device=o.device)
     blk_vals = torch.empty(nbm * RB, dtype=torch.float32, device=o.device)
-    fn = _launcher()
+    fn = _launcher("occluded_splat_occlusion_launch",
+                   [_P] * 9 + [_I] * 6 + [_F] * 3 + [_P] * 5)
     status = fn(
         *(_cuda.ptr(t) for t in (o, d, t_self, self_fid, contrib_pre,
-                                 bin_idx, soup, counts, lists)),
-        lists.shape[1], soup.shape[0] // GF, Lc, R // Lc, nbs, Bf,
+                                 bin_idx, hier.soup, hier.group_boxes,
+                                 hier.super_boxes)),
+        hier.super_boxes.shape[0], cap, Lc, rs, nbs, int(num_fine_bins),
         1.0 - t_rel, t_min, EPS_DET,
-        *(_cuda.ptr(t) for t in (occ, hist, blk_bins, blk_vals)),
+        *(_cuda.ptr(t) for t in (occ, counts, blk_bins, blk_vals)),
         _cuda.stream(o.device))
-    _cuda.check(status, "occluded_splat")
+    _cuda.check(status, "occluded_splat (occlusion)")
+    return occ, counts, blk_bins, blk_vals
+
+
+def reduce_call(blk_bins, blk_vals, Lc: int, num_fine_bins: int,
+                ranges: int | None = None):
+    """Launch K1's splat reduce -> hist [Lc, bins]: one block per (bin
+    range, source, slab of REDUCE_SLAB blocks' runs), then the slabs'
+    partial histograms added in slab order; ``ranges`` bin ranges per
+    source (``reduce_plan``'s by default; the result is the same for
+    any)."""
+    dev = blk_bins.device
+    Bf = int(num_fine_bins)
+    nbs = blk_bins.shape[0] // (Lc * RB)
+    auto, slabs = reduce_plan(Lc, Bf, nbs, _cuda.sm_count(dev))
+    ranges = auto if ranges is None else ranges
+    hist = torch.empty((Lc, Bf), dtype=torch.float32, device=dev)
+    partial = torch.empty(Lc * slabs * Bf if slabs > 1 else 0,
+                          dtype=torch.float32, device=dev)
+    fn = _launcher("occluded_splat_reduce_launch", [_P, _P] + [_I] * 5
+                   + [_P, _P, _P])
+    status = fn(_cuda.ptr(blk_bins), _cuda.ptr(blk_vals), Lc, nbs, Bf,
+                int(ranges), REDUCE_SLAB, _cuda.ptr(partial),
+                _cuda.ptr(hist), _cuda.stream(dev))
+    _cuda.check(status, "occluded_splat (reduce)")
+    return hist
+
+
+def kernel_call(o, d, t_self, self_fid, contrib_pre, bin_idx,
+                hier: FaceHierarchy, Lc: int, num_fine_bins: int, t_rel,
+                t_min, cap: int = LIST_CAP, ranges: int | None = None):
+    """K1 on checked inputs: the occlusion kernel, then the splat reduce
+    -> (occluded [R] bool, hist [Lc, bins], counts [Lc*nbs] int32)."""
+    occ, counts, blk_bins, blk_vals = occlusion_call(
+        o, d, t_self, self_fid, contrib_pre, bin_idx, hier, Lc,
+        num_fine_bins, t_rel, t_min, cap)
+    hist = reduce_call(blk_bins, blk_vals, Lc, num_fine_bins, ranges)
     occluded_splat.launches += 1
-    return occ.bool(), hist
+    return occ.bool(), hist, counts
 
 
 occluded_splat.launches = 0
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-def _launcher():
-    fn = _cuda.library("occluded_splat").occluded_splat_launch
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 9 + [I] * 6 + [Fl] * 3 + [P] * 4 + [P]
+
+def _launcher(name: str, argtypes):
+    fn = getattr(_cuda.library("occluded_splat"), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

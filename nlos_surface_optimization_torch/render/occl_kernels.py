@@ -9,13 +9,12 @@ For rays o, d with sample distance t_self it returns
           ray's own face excluded
 
 -- K1's occlusion without the splat, for rays in any order and any number
-of faces.  On a CUDA tensor it runs csrc/segment_occluded.cu: one 128-ray
-block per CUDA block, tested against the 8-face groups of that block's
-candidate list.  The broad phase here (torch ops) bounds each block's rays
-by a swept box and slab-tests it against the groups' boxes; rays are taken
-in groups so the [blocks, groups] candidate matrix stays near GROUP_PAIRS
-entries, one kernel launch per group.  On a CPU tensor it runs
-``occluded_plain`` (render/fused_kernels.py), which tests every face.
+of faces.  On a CUDA tensor it runs csrc/segment_occluded.cu, one launch
+per call: one 128-ray block per CUDA block, bounded by ``block_boxes``,
+with K1's hierarchical broad phase and narrow phase in the kernel.  On a
+CPU tensor it runs ``occluded_plain`` (render/fused_kernels.py), which
+tests every face; ``broad_phase`` is the plain version of the kernel's
+candidate lists.
 """
 
 from __future__ import annotations
@@ -27,27 +26,16 @@ import torch
 from .. import _cuda
 from .fused_kernels import (
     EPS_DET,
-    GF,
+    LIST_CAP,
+    FaceHierarchy,
     _check,
-    _group_boxes,
-    _slab_candidates,
-    face_soup,
+    check_hierarchy,
+    face_hierarchy,
+    hier_candidates,
     occluded_plain,
 )
 
 RB = 128                # rays per block
-KA_MAX = 256            # candidate-list slots per block; more means a full scan
-GROUP_PAIRS = 1 << 24   # block x face-group pairs per broad-phase group
-MAX_GROUP_BLOCKS = 1 << 16  # keeps a group's [blocks, KA_MAX] lists at 64 MB
-
-
-def ray_groups(num_rays: int, num_groups: int):
-    """[(r0, r1)] ray ranges, whole blocks each, with about GROUP_PAIRS
-    block x face-group pairs per range."""
-    nb = -(-num_rays // RB)
-    per = max(1, min(GROUP_PAIRS // max(num_groups, 1), MAX_GROUP_BLOCKS))
-    return [(b0 * RB, min((b0 + per) * RB, num_rays))
-            for b0 in range(0, nb, per)]
 
 
 def block_boxes(o, d, t_self):
@@ -79,24 +67,19 @@ def block_boxes(o, d, t_self):
     return 0.5 * (olo + ohi), 0.5 * (plo + phi), half, any_live[:, 0]
 
 
-def broad_phase(o, d, t_self, boxes, ka_max: int = KA_MAX):
-    """(counts [nb] int32, lists [nb, ka_max] int32) for 128-ray blocks of
-    the given rays against face-group boxes [ng, 6] (``_group_boxes``).
-    Lists hold candidate group ids in increasing order, padded with ng; a
-    count above ka_max means: scan every group."""
-    a, b, half, live = block_boxes(o, d, t_self)
-    counts, lists = _slab_candidates(a, b, half, boxes, ka_max)
-    counts = torch.where(live, counts, 0)
-    lists = torch.where(live[:, None], lists, boxes.shape[0])
-    return counts, lists.contiguous()
+def broad_phase(o, d, t_self, hier: FaceHierarchy):
+    """Plain version of K3's candidate lists: (counts [nb] int32, lists) as
+    ``hier_candidates`` gives them for ``block_boxes``."""
+    return hier_candidates(*block_boxes(o, d, t_self), hier)
 
 
 def segment_occluded(o, d, t_self, self_fid, v, f, f_valid, t_rel=1e-4,
-                     t_min=1e-6):
+                     t_min=1e-6, hier: FaceHierarchy | None = None):
     """[R] bool occlusion of the segments o -> o + d*t_self.
 
     o, d [R,3] f32; t_self [R] f32 (0 = dead ray, never occluded);
-    self_fid [R] int32; v [V,3] f32, f [F,3] int64, f_valid [F] bool."""
+    self_fid [R] int32; v [V,3] f32, f [F,3] int64, f_valid [F] bool;
+    hier: ``face_hierarchy(v, f, f_valid)``, built here when not given."""
     if o.device.type == "cpu":
         return occluded_plain(o, d, t_self, self_fid, v, f, f_valid, t_rel,
                               t_min)
@@ -112,34 +95,31 @@ def segment_occluded(o, d, t_self, self_fid, v, f, f_valid, t_rel=1e-4,
         _check(name, t, dt, shape)
         if t.device != o.device:
             raise ValueError(f"{name} is on {t.device}, rays on {o.device}")
-    occ = torch.zeros(R, dtype=torch.uint8, device=o.device)
     if R == 0 or F == 0:
-        return occ.bool()
-    ng = -(-F // GF)
-    boxes = _group_boxes(v, f, f_valid, ng, GF)
-    soup = face_soup(v, f, f_valid, ng)
-    for r0, r1 in ray_groups(R, ng):
-        counts, lists = broad_phase(o[r0:r1], d[r0:r1], t_self[r0:r1], boxes,
-                                    ka_max=KA_MAX)
-        kernel_call(o[r0:r1], d[r0:r1], t_self[r0:r1], self_fid[r0:r1], soup,
-                    counts, lists, t_rel, t_min, occ[r0:r1])
-    return occ.bool()
+        return torch.zeros(R, dtype=torch.bool, device=o.device)
+    if hier is None:
+        hier = face_hierarchy(v, f, f_valid)
+    check_hierarchy(hier, F, o.device)
+    return kernel_call(o, d, t_self, self_fid, hier, t_rel, t_min)[0]
 
 
-def kernel_call(o, d, t_self, self_fid, soup, counts, lists, t_rel, t_min,
-                out):
-    """Launch csrc/segment_occluded.cu on checked, contiguous inputs, the
-    broad phase's lists and the face soup; writes the mask into the uint8
-    tensor ``out`` [R]."""
+def kernel_call(o, d, t_self, self_fid, hier: FaceHierarchy, t_rel, t_min,
+                cap: int = LIST_CAP):
+    """Launch csrc/segment_occluded.cu once on checked, contiguous inputs
+    -> (occluded [R] bool, counts [nb] int32: groups listed per block,
+    summed over passes)."""
+    R = o.shape[0]
+    occ = torch.empty(R, dtype=torch.uint8, device=o.device)
+    counts = torch.empty(-(-R // RB), dtype=torch.int32, device=o.device)
     fn = _launcher()
     status = fn(
-        *(_cuda.ptr(t) for t in (o, d, t_self, self_fid, soup, counts,
-                                 lists)),
-        lists.shape[1], soup.shape[0] // GF, o.shape[0], 1.0 - t_rel, t_min,
-        EPS_DET, _cuda.ptr(out), _cuda.stream(o.device))
+        *(_cuda.ptr(t) for t in (o, d, t_self, self_fid, hier.soup,
+                                 hier.group_boxes, hier.super_boxes)),
+        hier.super_boxes.shape[0], cap, R, 1.0 - t_rel, t_min, EPS_DET,
+        _cuda.ptr(occ), _cuda.ptr(counts), _cuda.stream(o.device))
     _cuda.check(status, "segment_occluded")
     segment_occluded.launches += 1
-    return out
+    return occ.bool(), counts
 
 
 segment_occluded.launches = 0
@@ -148,6 +128,6 @@ segment_occluded.launches = 0
 def _launcher():
     fn = _cuda.library("segment_occluded").segment_occluded_launch
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 7 + [I] * 3 + [Fl] * 3 + [P, P]
+    fn.argtypes = [P] * 7 + [I] * 3 + [Fl] * 3 + [P] * 3
     fn.restype = ctypes.c_int
     return fn

@@ -65,17 +65,18 @@ def _graze(v, f, Lc, spt, num_bins, seed=1):
     return o, d, t, fi, contrib, bins
 
 
-@pytest.mark.parametrize("ka_max", [fk.KA_MAX, 1])   # 1: full-scan blocks
+@pytest.mark.parametrize("cap", [fk.LIST_CAP, 1])   # 1: a pass per group
 @pytest.mark.parametrize("num_bins", [384, 12000])
-def test_occluded_splat_kernel_matches_plain(cuda, monkeypatch, ka_max,
-                                             num_bins):
-    monkeypatch.setattr(fk, "KA_MAX", ka_max)
+def test_occluded_splat_kernel_matches_plain(cuda, cap, num_bins):
     v, f = _bumpy()
     mesh = pt.make_mesh(v, f, device=cuda)
     args = tuple(torch.from_numpy(x).to(cuda)
                  for x in _graze(v, f, 3, 2, num_bins))
     args += (mesh.v, mesh.f, mesh.f_valid, 3, num_bins)
-    occ, hist = fk.occluded_splat(*args)
+    hier = fk.face_hierarchy(mesh.v, mesh.f, mesh.f_valid)
+    before = fk.occluded_splat.launches
+    occ, hist, _ = fk.kernel_call(*args[:6], hier, 3, num_bins, 1e-4, 1e-6,
+                                  cap=cap)
     occ2, hist2 = fk.occluded_splat(*args)
     occ_p, hist_p = fk.occluded_splat_plain(*args)
     torch.cuda.synchronize()
@@ -83,7 +84,58 @@ def test_occluded_splat_kernel_matches_plain(cuda, monkeypatch, ka_max,
     assert torch.equal(occ, occ2) and torch.equal(hist, hist2)
     torch.testing.assert_close(hist, hist_p, rtol=2e-6,
                                atol=1e-7 * float(hist_p.abs().max()))
-    assert fk.occluded_splat.launches >= 2
+    assert fk.occluded_splat.launches - before == 2
+
+
+@pytest.mark.parametrize("kind", ["k1", "k3"])
+def test_kernel_counts_equal_the_plain_broad_phase(cuda, kind):
+    """The groups each block lists (summed over its passes) are the plain
+    broad phase's, at capacity 1 as at the default."""
+    v, f = _bumpy(12)
+    mesh = pt.make_mesh(v, f, device=cuda)
+    hier = fk.face_hierarchy(mesh.v, mesh.f, mesh.f_valid)
+    if kind == "k1":
+        rays = [torch.from_numpy(x).to(cuda) for x in _graze(v, f, 2, 2, 64)]
+        rays[2][::7] = 0.0                                      # dead rays
+        want, _, _ = fk.broad_phase(*rays[:3], 2, hier)
+        for cap in (fk.LIST_CAP, 1):
+            got = fk.kernel_call(*rays, hier, 2, 64, 1e-4, 1e-6, cap=cap)[2]
+            assert torch.equal(got, want)
+    else:
+        rays = [torch.from_numpy(x).to(cuda) for x in _mixed_rays(v, f, 900)]
+        rays[2][::5] = 0.0
+        want, _ = ok.broad_phase(*rays[:3], hier)
+        for cap in (fk.LIST_CAP, 1):
+            got = ok.kernel_call(*rays, hier, 1e-4, 1e-6, cap=cap)[1]
+            assert torch.equal(got, want)
+    assert int(want.sum()) > 0
+
+
+def test_splat_reduce_split_over_bin_ranges_is_bit_identical(cuda):
+    """The reduce (two slabs of block runs a source here) gives the same
+    histogram, bit for bit, for any split of the bins into ranges and from
+    launch to launch, within the tolerance of the plain splat."""
+    v, f = _bumpy()
+    mesh = pt.make_mesh(v, f, device=cuda)
+    args = tuple(torch.from_numpy(x).to(cuda)
+                 for x in _graze(v, f, 3, 400, 5000))
+    hier = fk.face_hierarchy(mesh.v, mesh.f, mesh.f_valid)
+    _, _, bins, vals = fk.occlusion_call(*args, hier, 3, 5000, 1e-4, 1e-6)
+    hists = [fk.reduce_call(bins, vals, 3, 5000, ranges)
+             for ranges in (1, None, None, 7, 40)]
+    _, hist_p = fk.occluded_splat_plain(*args, mesh.v, mesh.f, mesh.f_valid,
+                                        3, 5000)
+    torch.cuda.synchronize()
+    nbs = bins.shape[0] // (3 * fk.RB)
+    ranges, slabs = fk.reduce_plan(3, 5000, nbs, torch.cuda.
+                                   get_device_properties(cuda)
+                                   .multi_processor_count)
+    assert ranges > 1 and slabs == 2
+    assert float(hists[0].abs().max()) > 0
+    for h in hists[1:]:
+        assert torch.equal(h, hists[0])
+    torch.testing.assert_close(hists[0], hist_p, rtol=2e-6,
+                               atol=1e-7 * float(hist_p.abs().max()))
 
 
 @pytest.mark.parametrize("num_samples", [60, 500, 20000])  # spt 2, 10, 400
@@ -163,18 +215,14 @@ def _mixed_rays(v, f, n, seed=0):
     return o, (d / t[:, None]).astype(np.float32), t.astype(np.float32), fid
 
 
-@pytest.mark.parametrize("ka_max", [ok.KA_MAX, 1])   # 1: full-scan blocks
+@pytest.mark.parametrize("cap", [fk.LIST_CAP, 1])   # 1: a pass per group
 @pytest.mark.parametrize("scene", ["bumpy", "graze", "big"])
-def test_segment_occluded_kernel_matches_plain(cuda, monkeypatch, ka_max,
-                                               scene):
+def test_segment_occluded_kernel_matches_plain(cuda, cap, scene):
     """K3 on mixed-origin rays, on grazing rays ordered by source, and on a
-    height field above 65,536 faces (several ray groups)."""
-    monkeypatch.setattr(ok, "KA_MAX", ka_max)
+    height field above 65,536 faces; one launch per call."""
     if scene == "big":
-        n = 200                                      # 79,202 faces
-        v, f = _bumpy(n)
+        v, f = _bumpy(200)                                # 79,202 faces
         rays = _mixed_rays(v, f, 3000)
-        monkeypatch.setattr(ok, "GROUP_PAIRS", 1 << 16)   # 6 blocks a group
     else:
         v, f = _bumpy()
         rays = (_mixed_rays(v, f, 700) if scene == "bumpy"
@@ -182,17 +230,17 @@ def test_segment_occluded_kernel_matches_plain(cuda, monkeypatch, ka_max,
     mesh = pt.make_mesh(v, f, device=cuda)
     args = tuple(torch.from_numpy(x).to(cuda) for x in rays) + (
         mesh.v, mesh.f, mesh.f_valid)
+    hier = fk.face_hierarchy(*args[4:])
     before = ok.segment_occluded.launches
-    occ = ok.segment_occluded(*args)
+    occ, _ = ok.kernel_call(*args[:4], hier, 1e-4, 1e-6, cap=cap)
     occ2 = ok.segment_occluded(*args)
     occ_p = fk.occluded_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(occ, occ_p) and torch.equal(occ, occ2)
     assert occ.any() and (~occ).any()
-    groups = len(ok.ray_groups(args[0].shape[0], -(-f.shape[0] // fk.GF)))
-    assert ok.segment_occluded.launches - before == 2 * groups
+    assert ok.segment_occluded.launches - before == 2
     if scene == "big":
-        assert f.shape[0] > 65536 and groups > 1
+        assert f.shape[0] > 65536
 
 
 def test_segment_occluded_refuses_bad_inputs(cuda):

@@ -95,34 +95,65 @@ def test_occluded_plain_matches_divide_based_reference(bumpy_mesh):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _grid_scene(seed, Lc, spt):
+    """Grazing rays (as _splat_scene) over a Morton-ordered 242-face height
+    field: four 64-face supergroups, the last one partly padding."""
+    from nlos_surface_optimization_torch.geometry.accel import (
+        morton_order_faces,
+    )
+
+    n = 12
+    rng = np.random.RandomState(2)
+    xs = np.linspace(-0.25, 0.25, n)
+    gx, gy = np.meshgrid(xs, xs)
+    z = 0.5 + 0.08 * np.sin(6 * gx) * np.cos(5 * gy) + 0.02 * rng.randn(n, n)
+    v = np.stack([gx.ravel(), gy.ravel(), z.ravel()], 1).astype(np.float32)
+    f = np.array([q for i in range(n - 1) for j in range(n - 1)
+                  for q in ([i * n + j, i * n + j + n, i * n + j + 1],
+                            [i * n + j + n, i * n + j + n + 1,
+                             i * n + j + 1])], np.int32)
+    f = morton_order_faces(v, f).astype(np.int32)
+    return _splat_scene((v, f), seed, Lc, spt, 8)
+
+
 @pytest.mark.parametrize("seed,valid_frac", [(1, 1.0), (4, 0.6)])
-def test_broad_phase_lists_cover_every_blocker(bumpy_mesh, seed, valid_frac):
+def test_broad_phase_lists_cover_every_blocker(seed, valid_frac):
     """Every 8-face group holding a face that blocks one of a block's rays
-    is on that block's candidate list (or the block scans everything)."""
-    v, f, o, d, t, fi, _, _ = _splat_scene(bumpy_mesh, seed, 3, 3, 8)
+    is on that block's candidate list; K1's plan (the lists tested in
+    passes of a small capacity) gives the plain occlusion mask."""
+    v, f, o, d, t, fi, _, _ = _grid_scene(seed, 3, 2)
     F = f.shape[0]
     Lc = 3
     fv = np.random.RandomState(seed).rand(F) < valid_frac
     t[np.random.RandomState(seed + 1).rand(t.shape[0]) < 0.2] = 0.0  # dead
-    counts, lists, nbs = fk.broad_phase(_t(o), _t(d), _t(t), Lc, _t(v),
-                                        _t(f).long(), _t(fv))
-    ng = -(-F // fk.GF)
-    soup = fk.face_soup(_t(v), _t(f).long(), _t(fv), ng)[:F]
+    args = [_t(x) for x in (o, d, t, fi, v, f, fv)]
+    args[5] = args[5].long()
+    hier = fk.face_hierarchy(*args[4:])
+    counts, lists, nbs = fk.broad_phase(*args[:3], Lc, hier)
     blocked = fk.sign_safe_blocked(
-        _t(o), _t(d), _t(t) * (1.0 - 1e-4), _t(fi), soup,
-        torch.arange(F, dtype=torch.int32), 1e-6).numpy()     # [R, F]
+        args[0], args[1], args[2] * (1.0 - 1e-4), args[3],
+        fk.face_soup(*args[4:], -(-F // fk.GF))[:F],
+        torch.arange(F, dtype=torch.int32), 1e-6)             # [R, F]
     rs = t.shape[0] // Lc
-    assert blocked.any()
+    assert blocked.any() and F % 64
+    group_of = torch.empty(F, dtype=torch.int64)
+    group_of[hier.faces[:F].long()] = torch.arange(F) // fk.GF
+    emu = torch.zeros(t.shape[0], dtype=torch.bool)
+    cap = 2
     for b in range(Lc * nbs):
         l, j = divmod(b, nbs)
         rows = slice(l * rs + j * fk.RB, l * rs + min((j + 1) * fk.RB, rs))
-        need = set(np.nonzero(blocked[rows].any(0))[0] // fk.GF)
+        need = set(group_of[blocked[rows].any(0)].tolist())
         cnt = int(counts[b])
-        if cnt > fk.KA_MAX:
-            continue
-        have = set(lists[b, :cnt].tolist())
-        assert need <= have, (b, sorted(need - have))
-        assert (lists[b, cnt:] == ng).all()
+        have = lists[b, :cnt]
+        assert need <= set(have.tolist()), (b, sorted(need - set(have.tolist())))
+        assert (lists[b, cnt:] == -1).all()
+        for p0 in range(0, cnt, cap):
+            emu[rows] |= fk.narrow_plain(
+                args[0][rows], args[1][rows], args[2][rows] * (1.0 - 1e-4),
+                args[3][rows], hier, have[p0:p0 + cap].long(), 1e-6)
+    assert torch.equal(emu, fk.occluded_plain(*args))
+    assert torch.equal(emu, blocked.any(1))
 
 
 def _traced_rays(bumpy_mesh, num_samples, normal, testing_flag):
