@@ -15,9 +15,15 @@ Phases, each printing one JSON line with the card's name and power limit:
            sources).  Equal masks, histogram within rtol 2e-6 / atol
            1e-7*max, two launches bit-identical, the kernel's per-block
            candidate counts equal to the plain broad phase's
-  k2       the fused backward face-sum kernel against its plain version on
-           the flagship chunk: rtol 2e-4 / atol 2e-5*max|g|, two launches
-           bit-identical
+  k2       the fused backward face-sum kernel (tap reduction from the
+           difference rows in the kernel) and its face -> vertex epilogue
+           kernel against their plain versions on the flagship chunk
+           ('fn' and 'vn') and the K1 "large" rays ('vn'): rtol 2e-4 /
+           atol 2e-5*max, two launches bit-identical; the times of the
+           kernel, the epilogue and the whole per-chunk backward
+  sync     one flagship chunk of inverse_render under
+           torch.cuda.set_sync_debug_mode: its backward makes no
+           synchronizing call; the whole chunk's are counted
   k3       the standalone visibility kernel against its plain version:
            grazing rays on a small scene, one render_intensity chunk at
            the loop's culling shapes (the flagship height field, 64
@@ -53,8 +59,10 @@ broad phase (``occlusion_bound``).  Then one JSON line of per-kernel
 numbers (launches from the loop phase), the nvidia-smi line, and the
 closing {"ok": true, ...} line.  Any failed
 check raises; nothing falls back to the CPU.  With --profile, one more
-descent step runs under torch.profiler and its kernel table goes to
-DIR/profile.txt.
+flagship descent step and one descent step at the "large" shapes (23,762
+faces, 'vn', the loop's chunk) run under torch.profiler: their kernel
+tables go to DIR/profile*.txt, and a JSON line each gives the device-busy
+share and the top device ops.
 """
 
 import argparse
@@ -72,12 +80,16 @@ import torch
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# fp32 operations of one sign-safe Möller–Trumbore test (K1) and of one
-# ray's gradient terms and face sums (K2; GN_OPS more with the shading-
-# normal term), counted from the kernels' sources.
+# fp32 operations of one sign-safe Möller–Trumbore test (K1), of one ray
+# of K2 without its taps (albw, the fine bin, the gradient terms, the 12
+# products and register sums; GN_OPS more with the shading-normal term;
+# the taps add 4*G) and of one (face, slot) entry of K2's epilogue
+# (edge, cross product, adds; 6 more a slab), counted from the kernels'
+# sources.
 K1_OPS_PER_TEST = 48
-K2_OPS_PER_RAY = 86
+K2_OPS_PER_RAY = 94
 K2_GN_OPS_PER_RAY = 23
+K2_EPI_OPS_PER_ENTRY = 18
 
 FLAGSHIP = dict(num_samples=20000, num_bins=1200, distance_resolution=1.2e-3,
                 sigma_bin=1, bin_refine_resolution=10, source_chunk=64)
@@ -95,6 +107,7 @@ LOOP_ITERS = 16
 RESUME_FROM = 12
 LOOP_SIZES = dict(scan_resolution=None, sample_num=None, gt_sample_num=None)
 CARD = ""
+SLEEP_CYCLES = 40_000_000   # device_ms's head start, ~20 ms at 1.98 GHz
 
 
 def card_line() -> str:
@@ -121,6 +134,24 @@ def timed_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() on the card alone, for fn that only
+    launches work: the stream is held busy (torch.cuda._sleep, ~20 ms)
+    while the host enqueues the reps, so the host's time between launches
+    does not count (timed_ms counts it where it exceeds the kernel's)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -398,7 +429,7 @@ def phase_k1(dev, chunk_inputs_):
     require(bool(occ_s.any()), "K1 small case: no ray is occluded")
     emit("k1", case="small", max_abs_err=err_s, occluded=int(occ_s.sum()))
 
-    main, occ = k1_case("flagship", *chunk_inputs_)
+    main, _ = k1_case("flagship", *chunk_inputs_)
     lv, lf = large_scene()
     k1_case("large", *chunk_inputs(dev, lv, lf, True), reps=5, plain_reps=1)
     gt, _ = k1_case("gt", *gt_case_inputs(dev))
@@ -407,44 +438,185 @@ def phase_k1(dev, chunk_inputs_):
         torch.cuda.get_device_properties(dev).multi_processor_count)
     require(ranges * slabs > 1, "K1 gt case: one reduce block a source")
     return {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by")}, occ
+                                 "bound_by")}
 
 
 # ------------------------------------------------------------------ K2
 
 
-def phase_k2(dev, rays, mesh, lnormal, cfg, spt):
+def k2_case_inputs(dev, v, f, normal, chunk=None):
+    """One source chunk of the backward at the flagship settings on mesh
+    v, f ('vn': vertex normals, the gn term on, as the loop runs after its
+    shading switch): the rays traced through K1 and a random difference
+    -> (rays, mesh, lnormal, diff, cfg, spt).  ``chunk``: sources, the
+    loop's chunk when None."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.render import core
+
+    cfg = pt.RenderConfig(**FLAGSHIP).replace(
+        normal=normal, testing_flag=0 if normal == "vn" else 1)
+    spt = cfg.samples_per_face(f.shape[0])
+    Lc = min(chunk or loop_chunk(f.shape[0], spt), SCAN * SCAN)
+    mesh = pt.make_mesh(v, f, device=dev)
+    if normal == "vn":
+        mesh = mesh._replace(vn=pt.vertex_normals(mesh.v, mesh.f,
+                                                  mesh.f_valid))
+    lighting, lnormal = pt.make_confocal_scan(SCAN)
+    nc = torch.from_numpy(lnormal[:Lc]).to(dev)
+    rays, _ = core.trace_forward_fused(
+        mesh, torch.from_numpy(lighting[:Lc]).to(dev), nc, pt.key(0), cfg,
+        spt, cfg.forward_refine)
+    diff = torch.from_numpy((np.random.RandomState(3).randn(
+        Lc, cfg.num_bins) * 1e-3).astype(np.float32)).to(dev)
+    return rays, mesh, nc, diff, cfg, spt
+
+
+def k2_bounds(args, partial, mesh, csr):
+    """(bound_ms, bound_by) of K2 and of its epilogue, counted from the
+    kernels' sources over the published H100 peaks.  K2 bytes: its inputs
+    read once (the rays' tensors, face normals or per-ray normals, area,
+    the difference rows, the tap weights) and the face sums [F, 12]
+    written once; operations: K2_OPS_PER_RAY (+ K2_GN_OPS_PER_RAY) and
+    the 4*G tap products and sums of A and Bw per ray.  Epilogue bytes:
+    the slab partials, v, f, the CSR and the gradient read and written;
+    operations: per (face, slot) entry 6 adds a slab past the first and
+    K2_EPI_OPS_PER_ENTRY."""
+    *tensors, p = args
+    n_rays = tensors[1].numel()
+    G = tensors[-1].shape[-1]
+    F, V = partial.shape[1], mesh.v.shape[0]
+    ops = n_rays * (K2_OPS_PER_RAY + 4 * G
+                    + (K2_GN_OPS_PER_RAY if p.use_gn else 0))
+    k2 = (ops / FP32_OPS_PER_S,
+          (nbytes(*tensors) + F * 12 * 4) / HBM_BYTES_PER_S)
+    entries = int(csr.offsets[-1])
+    epi = (entries * (K2_EPI_OPS_PER_ENTRY + 6 * (partial.shape[0] - 1))
+           / FP32_OPS_PER_S,
+           (nbytes(partial, mesh.v, mesh.f, csr.offsets) + entries * 4
+            + 2 * V * 12) / HBM_BYTES_PER_S)
+    return [(max(o, b) * 1e3, "operations" if o >= b else "bytes")
+            for o, b in (k2, epi)]
+
+
+def k2_case(name, rays, mesh, lnormal, diff, cfg, spt, reps=20):
+    """K2 and its epilogue on one chunk: twice bit-identical, against
+    their plain versions (rtol 2e-4 / atol 2e-5*max, test_bwd_kernel.py's
+    tolerances), then the times of the kernel, the epilogue, the whole
+    per-chunk backward (CSR built, adding into a running gradient) and
+    the plain versions -> record.  ``ms`` and ``epilogue_ms`` are the
+    kernels' device time (``device_ms``), ``wrapper_ms`` and
+    ``epilogue_wrapper_ms`` the calls' rate with the host's time, as
+    ``chunk_ms``."""
     from nlos_surface_optimization_torch.render import bwd_kernels as bk
 
-    diff = torch.from_numpy((np.random.RandomState(3).randn(
-        rays.h.shape[0], cfg.num_bins) * 1e-3).astype(np.float32)).to(dev)
     args = bk.face_sum_inputs(rays, lnormal, diff, 0, cfg, spt)
-    sums = bk.backward_face_sums(*args)
-    sums2 = bk.backward_face_sums(*args)
+    partial = bk.backward_face_sums(*args)
+    partial2 = bk.backward_face_sums(*args)
     sums_p = bk.backward_face_sums_plain(*args)
-    torch.cuda.synchronize()
-    require(torch.equal(sums, sums2), "K2: two launches differ")
-    g = bk.vertex_gradient(sums, mesh)
+    csr = bk.vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
+    g = bk.vertex_epilogue(partial, mesh, csr)
+    g2 = bk.vertex_epilogue(partial2, mesh, csr)
+    sums = bk.slab_sum(partial)
     g_p = bk.vertex_gradient(sums_p, mesh)
-    torch.testing.assert_close(g, g_p, rtol=2e-4,
-                               atol=2e-5 * float(g_p.abs().max()))
+    torch.cuda.synchronize()
+    require(torch.equal(partial, partial2) and torch.equal(g, g2),
+            f"K2 {name}: two launches differ")
     torch.testing.assert_close(sums, sums_p, rtol=2e-4,
                                atol=2e-5 * float(sums_p.abs().max()))
-    err = float((sums - sums_p).abs().max())
-    ms = timed_ms(lambda: bk.backward_face_sums(*args), 20)
-    plain_ms = timed_ms(lambda: bk.backward_face_sums_plain(*args), 3)
-    n_rays = rays.h.numel()
-    use_gn = args[9]
-    ops = n_rays * (K2_OPS_PER_RAY + (K2_GN_OPS_PER_RAY if use_gn else 0))
-    moved = nbytes(*args[:8]) + sums.numel() * 4
-    ops_s, bytes_s = ops / FP32_OPS_PER_S, moved / HBM_BYTES_PER_S
-    bound_ms = max(ops_s, bytes_s) * 1e3
-    bound_by = "operations" if ops_s >= bytes_s else "bytes"
-    emit("k2", max_abs_err=err, grad_max_abs_err=float((g - g_p).abs().max()),
-         rays=n_rays, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-         bound_by=bound_by)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    require(float(g_p.abs().max()) > 0, f"K2 {name}: the gradient is zero")
+    torch.testing.assert_close(g, g_p, rtol=2e-4,
+                               atol=2e-5 * float(g_p.abs().max()))
+    (bound_ms, bound_by), (epi_bound_ms, epi_bound_by) = k2_bounds(
+        args, partial, mesh, csr)
+    grad = torch.zeros_like(g)
+    rec = dict(
+        case=name, rays=rays.h.numel(), faces=mesh.f.shape[0],
+        sources=rays.h.shape[0], spt=spt, normal=cfg.normal,
+        slabs=partial.shape[0], max_abs_err=float((sums - sums_p).abs().max()),
+        grad_max_abs_err=float((g - g_p).abs().max()),
+        ms=device_ms(lambda: bk.backward_face_sums(*args), reps),
+        epilogue_ms=device_ms(lambda: bk.vertex_epilogue(partial, mesh, csr,
+                                                         grad), reps),
+        wrapper_ms=timed_ms(lambda: bk.backward_face_sums(*args), reps),
+        epilogue_wrapper_ms=timed_ms(lambda: bk.vertex_epilogue(
+            partial, mesh, csr, grad), reps),
+        chunk_ms=timed_ms(lambda: bk.backward_chunk_fused(
+            rays, mesh, lnormal, diff, 0, cfg, spt, csr=csr, grad=grad),
+            reps),
+        plain_ms=timed_ms(lambda: bk.backward_face_sums_plain(*args), 3),
+        epilogue_plain_ms=timed_ms(lambda: bk.vertex_gradient(
+            bk.slab_sum(partial), mesh), 3),
+        bound_ms=bound_ms, bound_by=bound_by, epilogue_bound_ms=epi_bound_ms,
+        epilogue_bound_by=epi_bound_by)
+    emit("k2", **rec)
+    return rec
+
+
+def phase_k2(dev, v, f):
+    """K2 and its epilogue on the flagship chunk ('fn', 64 sources, 1.36 M
+    rays; and 'vn') and on the K1 'large' rays ('vn', 23,762 faces, the
+    loop's chunk) -> ({K2 record}, {epilogue record}) of the first."""
+    main = k2_case("flagship", *k2_case_inputs(dev, v, f, "fn",
+                                               FLAGSHIP["source_chunk"]))
+    k2_case("flagship_vn", *k2_case_inputs(dev, v, f, "vn",
+                                           FLAGSHIP["source_chunk"]))
+    lv, lf = large_scene()
+    k2_case("large", *k2_case_inputs(dev, lv, lf, "vn"), reps=10)
+    k2 = {k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by")}
+    epi = dict(max_abs_err=main["grad_max_abs_err"], ms=main["epilogue_ms"],
+               plain_ms=main["epilogue_plain_ms"],
+               bound_ms=main["epilogue_bound_ms"],
+               bound_by=main["epilogue_bound_by"])
+    return k2, epi
+
+
+def phase_sync(dev, v, f):
+    """One flagship chunk of inverse_render (key on the card, hierarchy and
+    CSR built, warmed once) under torch.cuda.set_sync_debug_mode('warn'):
+    the synchronizing calls of its backward (must be none) and of the
+    whole chunk."""
+    import warnings
+
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.render import api
+    from nlos_surface_optimization_torch.render import bwd_kernels as bk
+    from nlos_surface_optimization_torch.render import fused_kernels as fk
+
+    rays, mesh, nc, diff, cfg, spt = k2_case_inputs(
+        dev, v, f, "fn", FLAGSHIP["source_chunk"])
+    lighting = torch.from_numpy(pt.make_confocal_scan(SCAN)[0][
+        :FLAGSHIP["source_chunk"]]).to(dev)
+    hier = fk.face_hierarchy(mesh.v, mesh.f, mesh.f_valid)
+    csr = bk.vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
+    key = pt.key(0).to(dev)
+    w = torch.ones_like(diff)
+
+    def backward():
+        return bk.backward_chunk_fused(rays, mesh, nc, diff, 0, cfg, spt,
+                                       csr=csr)
+
+    def chunk():
+        return api._fused_chunk_body(mesh, lighting, nc, 0, key, diff, w,
+                                     cfg, spt, hier, csr, None)
+
+    counts = {}
+    for name, fn in (("backward", backward), ("chunk", chunk)):
+        fn()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts[name] = [str(m.message).splitlines()[0][:120] for m in seen
+                        if "called a synchronizing" in str(m.message)]
+    emit("sync", backward_syncs=len(counts["backward"]),
+         chunk_syncs=len(counts["chunk"]), chunk_calls=counts["chunk"])
+    require(not counts["backward"],
+            f"the fused backward synchronizes: {counts['backward']}")
 
 
 # ------------------------------------------------------------------ K3
@@ -649,6 +821,8 @@ class Descent:
     def step(self):
         """-> (l2, data l2, gradient before the smoothing term)."""
         m = self.mesh
+        if self.cfg.normal == "vn":
+            m = m._replace(vn=self.pt.vertex_normals(m.v, m.f, m.f_valid))
         transient, grad, _ = self.pt.inverse_render(
             m, self.gt, self.weight, self.lighting, self.lnormal, self.cfg,
             self.key)
@@ -684,6 +858,7 @@ def phase_slice(dev, v, f, plane, steps, profile_dir=None):
 
     fk.occluded_splat.launches = 0
     bk.backward_face_sums.launches = 0
+    bk.vertex_epilogue.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gt, _ = pt.render_transient(pt.make_mesh(v, f, device=dev), lighting,
@@ -711,15 +886,17 @@ def phase_slice(dev, v, f, plane, steps, profile_dir=None):
         emit("slice_step", step=i, l2=l2, data_l2=data_l2, seconds=dt,
              path_samples_per_sec=rate, grad_max=float(grad.abs().max()))
     launches = {"occluded_splat": fk.occluded_splat.launches,
-                "backward_face_sums": bk.backward_face_sums.launches}
+                "backward_face_sums": bk.backward_face_sums.launches,
+                "vertex_epilogue": bk.vertex_epilogue.launches}
     want = {"occluded_splat": chunks * (steps + 1),
-            "backward_face_sums": chunks * steps}
+            "backward_face_sums": chunks * steps,
+            "vertex_epilogue": chunks * steps}
     require(launches == want, f"launch counts {launches}, expected {want}")
     emit("slice", scan=f"{SCAN}x{SCAN}", faces=F, spt=spt, chunks=chunks,
          rays_per_pass=L * F * spt, launches=launches,
          step_seconds=per_step, gt_seconds=gt_s)
     if profile_dir:
-        profile_step(descent, profile_dir)
+        profile_step(descent, profile_dir, "flagship")
     return launches
 
 
@@ -768,6 +945,7 @@ def phase_loop(dev, workdir, rec):
     spec = SCENES[SCENE]
     fk.occluded_splat.launches = 0
     bk.backward_face_sums.launches = 0
+    bk.vertex_epilogue.launches = 0
     ok.segment_occluded.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -778,6 +956,7 @@ def phase_loop(dev, workdir, rec):
     total = time.perf_counter() - t0
     launches = {"occluded_splat": fk.occluded_splat.launches,
                 "backward_face_sums": bk.backward_face_sums.launches,
+                "vertex_epilogue": bk.vertex_epilogue.launches,
                 "segment_occluded": ok.segment_occluded.launches}
     loop = rec.loops[-1]
     steps = [r for r in loop.stats if r["kind"] == "step"]
@@ -804,6 +983,7 @@ def phase_loop(dev, workdir, rec):
                    res * res, 16 if res >= 256 else 8)
     want = {"occluded_splat": gt + sum(r["chunks"] for r in steps),
             "backward_face_sums": sum(r["chunks"] for r in steps),
+            "vertex_epilogue": sum(r["chunks"] for r in steps),
             "segment_occluded": sum(r["chunks"] for r in remeshes)}
     require(launches == want, f"launch counts {launches}, expected {want}")
     init = next(m for _, m in rec.lines if m.startswith("init mesh"))
@@ -864,27 +1044,70 @@ def phase_resume(dev, workdir, state, hist, rec):
     require(same_v, "resume: vertices differ")
 
 
-def profile_step(descent, out_dir):
-    """One more descent step under torch.profiler -> DIR/profile.txt and a
-    JSON line of device time by kernel."""
+def profile_step(descent, out_dir, name):
+    """One more descent step under torch.profiler -> DIR/profile_<name>.txt
+    and a JSON line: the step's seconds without the profiler, the device
+    time of its kernels, memory copies and fills (from the trace's device
+    events), the device-busy share (that time over the unprofiled step)
+    and the top device ops by name."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    descent.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         descent.step()
         torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40)
-    with open(os.path.join(out_dir, "profile.txt"), "w") as fh:
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as fh:
         fh.write(table)
-    rows = sorted(prof.key_averages(),
-                  key=lambda e: -getattr(e, "self_device_time_total", 0))
-    top = [{"name": e.key[:80],
-            "device_ms": getattr(e, "self_device_time_total", 0) / 1e3,
-            "calls": e.count} for e in rows[:12]]
-    emit("profile", top=top)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    emit("profile", case=name, faces=int(descent.mesh.f.shape[0]),
+         chunk=descent.cfg.source_chunk, step_seconds=step_s,
+         profiled_step_seconds=profiled_s, device_ms=busy_ms,
+         busy_share=busy_ms / 1e3 / step_s,
+         top=[{"name": k[:80], "device_ms": us / 1e3, "calls": n}
+              for k, (us, n) in top])
+
+
+def profile_large(dev, out_dir):
+    """One descent step at the "large" shapes under the profiler: the
+    n = 110 height field (23,762 faces) from its flat plane toward its GT,
+    'vn' shading with the gn term (the loop after its shading switch), the
+    loop's chunk; one warm step first."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.geometry.accel import (
+        morton_order_faces,
+    )
+
+    v, f, plane = height_field(LARGE_N, 0.35, 0.6, 0.01, 0)
+    f = morton_order_faces(v, f)
+    spt = pt.RenderConfig(**FLAGSHIP).samples_per_face(f.shape[0])
+    cfg = pt.RenderConfig(**FLAGSHIP).replace(
+        normal="vn", testing_flag=0, source_chunk=loop_chunk(f.shape[0], spt))
+    lighting, lnormal = (torch.from_numpy(x).to(dev)
+                         for x in pt.make_confocal_scan(SCAN))
+    gt_mesh = pt.make_mesh(v, f, device=dev)
+    gt_mesh = gt_mesh._replace(vn=pt.vertex_normals(gt_mesh.v, gt_mesh.f,
+                                                    gt_mesh.f_valid))
+    gt, _ = pt.render_transient(gt_mesh, lighting, lnormal, cfg, pt.key(0))
+    descent = Descent(plane, f, gt, lighting, lnormal, cfg, pt.key(0), dev)
+    descent.step()
+    profile_step(descent, out_dir, "large")
 
 
 def run(dev, steps, profile_dir=None):
@@ -906,17 +1129,18 @@ def run(dev, steps, profile_dir=None):
     lc = torch.from_numpy(lighting[:cfg.source_chunk]).to(dev)
     nc = torch.from_numpy(lnormal[:cfg.source_chunk]).to(dev)
     spt = cfg.samples_per_face(f.shape[0])
-    rays_pre, args, kwargs = core.splat_inputs(
+    _, args, kwargs = core.splat_inputs(
         mesh, lc, nc, pt.key(0), cfg, spt, cfg.forward_refine)
-    k1, occ = phase_k1(dev, (args, kwargs))
-    rays = rays_pre._replace(valid=rays_pre.valid & ~occ.reshape(
-        rays_pre.h.shape))
-    k2 = phase_k2(dev, rays, mesh, nc, cfg, spt)
+    k1 = phase_k1(dev, (args, kwargs))
+    k2, epi = phase_k2(dev, v, f)
+    phase_sync(dev, v, f)
     k3 = phase_k3(dev, v, f)
     phase_uniforms(dev, f.shape[0], spt)
     phase_small(dev)
     phase_intensity(dev)
     phase_slice(dev, v, f, plane, steps, profile_dir)
+    if profile_dir:
+        profile_large(dev, profile_dir)
     rec = Recorder()
     with tempfile.TemporaryDirectory() as tmp:
         workdir = os.path.join(tmp, SCENE)
@@ -934,6 +1158,11 @@ def run(dev, steps, profile_dir=None):
              replaces="nlos_surface_optimization_tpu/render/"
                       "bwd_kernels.py:59",
              launches=launches["backward_face_sums"], library_ms=None, **k2),
+        dict(name="vertex_epilogue", route="cuda",
+             source=f"{pkg}/csrc/backward_face_sums.cu",
+             replaces="nlos_surface_optimization_tpu/render/"
+                      "bwd_kernels.py:300",
+             launches=launches["vertex_epilogue"], library_ms=None, **epi),
         dict(name="segment_occluded", route="cuda",
              source=f"{pkg}/csrc/segment_occluded.cu",
              replaces="nlos_surface_optimization_tpu/render/"

@@ -6,7 +6,9 @@
 
 Sources are processed in chunks of cfg.source_chunk by a Python loop;
 on the card the kernels' view of the mesh (fused_kernels.face_hierarchy)
-is built once per call and handed to every chunk.  The ``*_host`` names
+is built once per call and handed to every chunk, as are the sampler's
+key (moved to the mesh's device once) and, for the fused backward, the
+vertex CSR of its epilogue (bwd_kernels.vertex_csr).  The ``*_host`` names
 are the same functions (in the JAX package they differ in where the
 chunk loop runs).  Everything runs on the mesh's device; numpy inputs
 are moved there.
@@ -21,6 +23,7 @@ import torch
 
 from ..config import RenderConfig, check_backends
 from ..geometry.mesh import Mesh
+from .bwd_kernels import VertexCSR, backward_chunk_fused, vertex_csr
 from .fused_kernels import FaceHierarchy, face_hierarchy
 from .core import (
     backward_chunk,
@@ -94,6 +97,7 @@ def render_transient(mesh: Mesh, lighting, lighting_normal,
     dev = mesh.device
     spt = _spt(cfg, mesh)
     r = cfg.bin_refine_resolution if refine is None else refine
+    key = key.to(dev)
     lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
                                   _as_tensor(lighting_normal, dev), cfg)
     hier = _hierarchy(mesh, cfg)
@@ -117,6 +121,7 @@ def render_intensity(mesh: Mesh, lighting, lighting_normal,
     check_backends(cfg)
     dev = mesh.device
     spt = _spt(cfg, mesh)
+    key = key.to(dev)
     lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
                                   _as_tensor(lighting_normal, dev), cfg)
     hier = _hierarchy(mesh, cfg)
@@ -148,9 +153,12 @@ def _use_fused_bwd(cfg: RenderConfig) -> bool:
 
 def _fused_chunk_body(mesh: Mesh, lc, nc_, off: int, key, dat, w,
                       cfg: RenderConfig, spt: int,
-                      hier: Optional[FaceHierarchy]):
-    """(transient rows, vertex gradient) for one source chunk: one trace
-    serves the forward and the backward (the difference is row-local)."""
+                      hier: Optional[FaceHierarchy],
+                      csr: Optional[VertexCSR], grad):
+    """(transient rows, running gradient + this chunk's vertex gradient)
+    for one source chunk: one trace serves the forward and the backward
+    (the difference is row-local).  The fused backward adds into grad in
+    place on the card; grad None starts the sum."""
     refine = cfg.forward_refine
     rays, fine = _trace_and_forward(mesh, lc, nc_, key, cfg, spt, off, refine,
                                     hier)
@@ -158,12 +166,10 @@ def _fused_chunk_body(mesh: Mesh, lc, nc_, off: int, key, dat, w,
                                    cfg.sigma_bin)
     diff = _difference(dat, transient, w, cfg)
     if _use_fused_bwd(cfg):
-        from .bwd_kernels import backward_chunk_fused
-
-        g = backward_chunk_fused(rays, mesh, nc_, diff, 0, cfg, spt)
-    else:
-        g = backward_chunk(rays, mesh, nc_, diff, 0, cfg, spt)
-    return transient, g
+        return transient, backward_chunk_fused(rays, mesh, nc_, diff, 0, cfg,
+                                               spt, csr=csr, grad=grad)
+    g = backward_chunk(rays, mesh, nc_, diff, 0, cfg, spt)
+    return transient, g if grad is None else grad + g
 
 
 def inverse_render(mesh: Mesh, data, weight, lighting, lighting_normal,
@@ -176,6 +182,7 @@ def inverse_render(mesh: Mesh, data, weight, lighting, lighting_normal,
     check_backends(cfg)
     dev = mesh.device
     spt = _spt(cfg, mesh)
+    key = key.to(dev)
     lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
                                   _as_tensor(lighting_normal, dev), cfg)
     pad = nc * Lc - L
@@ -184,14 +191,15 @@ def inverse_render(mesh: Mesh, data, weight, lighting, lighting_normal,
     weight_p = torch.nn.functional.pad(_as_tensor(weight, dev),
                                        (0, 0, 0, pad))
     hier = _hierarchy(mesh, cfg)
+    csr = (vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
+           if _use_fused_bwd(cfg) else None)
     parts, grad = [], None
     for i in range(nc):
         rows = slice(i * Lc, (i + 1) * Lc)
-        t, g = _fused_chunk_body(mesh, lit[i], nrm[i], i * Lc, key,
-                                 data_p[rows], weight_p[rows], cfg, spt,
-                                 hier)
+        t, grad = _fused_chunk_body(mesh, lit[i], nrm[i], i * Lc, key,
+                                    data_p[rows], weight_p[rows], cfg, spt,
+                                    hier, csr, grad)
         parts.append(t)
-        grad = g if grad is None else grad + g
     transient = torch.cat(parts, dim=0)[:L]
     return transient, grad / float(L), pathlengths(cfg, dev)
 

@@ -18,6 +18,7 @@ its reciprocal, which can move a sample across a bin boundary.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -285,35 +286,41 @@ def _gradient_terms(rays: RayBatch, lighting_normal, cfg: RenderConfig):
     return t1, t2, intensity, ff2
 
 
+@functools.lru_cache(maxsize=8)
+def _tap_index_tables(num_bins: int, refine: int, sigma_bin: int,
+                      resolution: float, device: str, dtype):
+    """Per tap group j, (in-range mask, clipped coarse bin, W, WD) over the
+    fine bins q in [0, Bf] (q == Bf at 2h == bin_upper): they depend on
+    the configuration only, so they go to the device once."""
+    W, WD = grouped_gaussian_tables(resolution, refine, sigma_bin)
+    qs_tab = np.arange(num_bins * refine + 1) - 2 * refine * sigma_bin
+    p_tab = qs_tab % refine
+    b0_tab = qs_tab // refine
+    out = []
+    for j in range(W.shape[1]):
+        b = b0_tab + j
+        out.append((torch.from_numpy((b >= 0) & (b < num_bins)).to(device),
+                    torch.from_numpy(np.clip(b, 0, num_bins - 1)).to(device),
+                    torch.from_numpy(W[p_tab, j]).to(device, dtype),
+                    torch.from_numpy(WD[p_tab, j]).to(device, dtype)))
+    return tuple(out)
+
+
 def _tap_tables(difference, source_offset: int, Lc: int, cfg: RenderConfig,
                 dtype=torch.float32):
     """Per-fine-bin tap-reduction tables (A_tab, Bw_tab), each [Lc, Bf+1]:
     the K taps of a sample with fine bin q land on G consecutive coarse
     bins with phase-grouped weights, so the reduction depends on the ray
     only through q."""
-    B = cfg.num_bins
-    refine = cfg.bin_refine_resolution
-    W, WD = grouped_gaussian_tables(cfg.distance_resolution, refine,
-                                    cfg.sigma_bin)
-    G = W.shape[1]
-    rsig = 2 * refine * cfg.sigma_bin
-    Bf = B * refine
+    Bf = cfg.num_bins * cfg.bin_refine_resolution
     dev = difference.device
     diff_c = difference[source_offset:source_offset + Lc].to(dtype)
-
-    # tables over q in [0, Bf] (q == Bf at 2h == bin_upper)
-    qs_tab = np.arange(Bf + 1) - rsig
-    p_tab = qs_tab % refine
-    b0_tab = qs_tab // refine
     A_tab = torch.zeros((Lc, Bf + 1), dtype=dtype, device=dev)
     Bw_tab = torch.zeros((Lc, Bf + 1), dtype=dtype, device=dev)
-    for j in range(G):
-        b = b0_tab + j
-        ok = torch.from_numpy((b >= 0) & (b < B)).to(dev)
-        idx = torch.from_numpy(np.clip(b, 0, B - 1)).to(dev)
+    for ok, idx, wa, wd in _tap_index_tables(
+            cfg.num_bins, cfg.bin_refine_resolution, cfg.sigma_bin,
+            float(cfg.distance_resolution), str(dev), dtype):
         d = torch.where(ok[None, :], diff_c[:, idx], 0.0)
-        wa = torch.from_numpy(W[p_tab, j]).to(dev, dtype)
-        wd = torch.from_numpy(WD[p_tab, j]).to(dev, dtype)
         A_tab = A_tab + wa[None, :] * d
         Bw_tab = Bw_tab + wd[None, :] * d
     return A_tab, Bw_tab

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time kernels K1 and K3 of one version of the PyTorch port on a CUDA card.
+"""Time kernels K1, K2 and K3 of one version of the PyTorch port on a CUDA
+card.
 
-    python3 scripts/compare_kernel_versions.py DIR
+    python3 scripts/compare_kernel_versions.py DIR [--profile OUT]
 
 DIR holds a version of the repo: this checkout (``.``) or an earlier one
 unpacked with ``git archive``.  The script imports the
@@ -10,12 +11,27 @@ and times K1 and K3 at the kernel cases of this checkout's
 ``chip_smoke.py`` (the flagship chunk, ``large``, ``gt``, the loop's K3
 chunk, ``big_mesh``), one JSON line per case: the wrapper as a render
 calls it (``ms``), its kernel launches alone (``kernel_ms``) and its
-preparation (``prep_ms``).  To compare two versions in one call on one
-card, run it once per DIR, alternating (a, b, b, a).  ``inputs_sum``
-shows that both versions were given the same inputs.  Masks are not
-checked here: ``chip_smoke.py`` holds each kernel to its plain version.
+preparation (``prep_ms``).  K2 at its cases (the flagship chunk in 'fn'
+and 'vn', ``large`` in 'vn'): the face-sum wrapper on prebuilt arguments,
+its device time (``ms``, ``chip_smoke.device_ms``) and its calls' rate
+with the host's time (``wrapper_ms``), then, host time included, the
+epilogue from the face sums to the running gradient (``epilogue_ms``)
+and the whole per-chunk backward from a RayBatch and a difference to the
+running gradient (``chunk_ms``).  With --profile, one
+descent step at the ``large`` shapes runs under torch.profiler
+(``chip_smoke.profile_large``; its table goes to OUT).  To compare two
+versions in one call on one card, run it once per DIR, alternating (a,
+b, b, a).  ``inputs_sum`` shows that both versions were given the same
+inputs.  Results are not checked here: ``chip_smoke.py`` holds each
+kernel to its plain version.
 
-Two package layouts are understood: the one with the face hierarchy
+Two layouts of K2 are understood: the one with the tap reduction in the
+kernel and the epilogue kernel (``bwd_kernels.vertex_epilogue``), and the
+one before it (tap tables built per chunk, slabs summed and the vertex
+gradient computed by torch ops, the running gradient added by the
+caller; its ``ms`` includes the slab sum).
+
+Two package layouts of K1 and K3 are understood: the one with the face hierarchy
 (``fused_kernels.face_hierarchy``, built once per render, the broad phase
 inside the kernels), and the one before it, whose broad phase ran as
 torch ops per chunk (``fused_kernels.broad_phase(..., ka_max=)`` and the
@@ -86,8 +102,34 @@ def stages(fk, ok):
     return k1_torch_broad_phase, k3_torch_broad_phase
 
 
+def k2_stages(bk, case):
+    """For one K2 case (rays, mesh, lnormal, diff, cfg, spt), the callables
+    to time in the package version at hand -> {ms, epilogue_ms,
+    chunk_ms}."""
+    rays, mesh, nc, diff, cfg, spt = case
+    grad = torch.zeros_like(mesh.v)
+    args = bk.face_sum_inputs(rays, nc, diff, 0, cfg, spt)
+    if hasattr(bk, "vertex_epilogue"):
+        partial = bk.backward_face_sums(*args)
+        csr = bk.vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
+        return dict(
+            ms=lambda: bk.backward_face_sums(*args),
+            epilogue_ms=lambda: bk.vertex_epilogue(partial, mesh, csr, grad),
+            chunk_ms=lambda: bk.backward_chunk_fused(
+                rays, mesh, nc, diff, 0, cfg, spt, csr=csr, grad=grad))
+    sums = bk.backward_face_sums(*args)
+    return dict(
+        ms=lambda: bk.backward_face_sums(*args),
+        epilogue_ms=lambda: grad + bk.vertex_gradient(sums, mesh),
+        chunk_ms=lambda: grad + bk.backward_chunk_fused(
+            rays, mesh, nc, diff, 0, cfg, spt))
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    profile = None
+    if len(argv) == 3 and argv[1] == "--profile":
+        profile, argv = argv[2], argv[:1]
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -106,6 +148,7 @@ def main(argv=None) -> int:
     from nlos_surface_optimization_torch.geometry.accel import (
         morton_order_faces,
     )
+    from nlos_surface_optimization_torch.render import bwd_kernels as bk
     from nlos_surface_optimization_torch.render import fused_kernels as fk
     from nlos_surface_optimization_torch.render import occl_kernels as ok
 
@@ -141,6 +184,23 @@ def main(argv=None) -> int:
         cs.emit("versions", root=argv[0], kernel=kernel, case=name,
                 inputs_sum=digest,
                 **{k: cs.timed_ms(fn, 5) for k, fn in fns.items()})
+    for name, make in (
+            ("flagship", lambda: cs.k2_case_inputs(
+                dev, v, f, "fn", cs.FLAGSHIP["source_chunk"])),
+            ("flagship_vn", lambda: cs.k2_case_inputs(
+                dev, v, f, "vn", cs.FLAGSHIP["source_chunk"])),
+            ("large", lambda: cs.k2_case_inputs(dev, lv, lf, "vn"))):
+        case = make()
+        digest = float(sum(float(x.double().sum()) for x in case[0]
+                           if x.is_floating_point()) + case[3].sum())
+        fns = k2_stages(bk, case)
+        cs.emit("versions", root=argv[0], kernel="k2", case=name,
+                inputs_sum=digest, ms=cs.device_ms(fns["ms"], 20),
+                wrapper_ms=cs.timed_ms(fns["ms"], 20),
+                epilogue_ms=cs.timed_ms(fns["epilogue_ms"], 20),
+                chunk_ms=cs.timed_ms(fns["chunk_ms"], 20))
+    if profile:
+        cs.profile_large(dev, profile)
     return 0
 
 

@@ -138,12 +138,10 @@ def test_splat_reduce_split_over_bin_ranges_is_bit_identical(cuda):
                                atol=1e-7 * float(hist_p.abs().max()))
 
 
-@pytest.mark.parametrize("num_samples", [60, 500, 20000])  # spt 2, 10, 400
-@pytest.mark.parametrize("normal,testing_flag", [
-    ("fn", 1), ("vn", 0), ("vn", 1)])
-def test_backward_face_sums_kernel_matches_plain(cuda, normal, testing_flag,
-                                                 num_samples):
-    v, f = _bumpy()
+def _k2_chunk(cuda, normal, testing_flag, num_samples, scan=5, n=6):
+    """One traced chunk of the small height field on the card: (mesh,
+    cfg, lnormal, spt, rays, diff); scan x scan sources (25 > one slab)."""
+    v, f = _bumpy(n)
     mesh = pt.make_mesh(v, f, device=cuda)
     if normal == "vn":
         mesh = mesh._replace(vn=pt.vertex_normals(mesh.v, mesh.f,
@@ -152,24 +150,121 @@ def test_backward_face_sums_kernel_matches_plain(cuda, normal, testing_flag,
                           distance_resolution=5e-3, normal=normal,
                           testing_flag=testing_flag)
     lighting, lnormal = (torch.from_numpy(x).to(cuda)
-                         for x in pt.make_confocal_scan(5))  # 25 > 1 slab
+                         for x in pt.make_confocal_scan(scan))
     spt = cfg.samples_per_face(f.shape[0])
     rays = core.trace_chunk(mesh, lighting, lnormal, pt.key(11), cfg, spt)
-    diff = torch.from_numpy((np.random.RandomState(0).randn(25, 300) * 1e-3)
-                            .astype(np.float32)).to(cuda)
+    diff = torch.from_numpy((np.random.RandomState(0).randn(
+        scan * scan, 300) * 1e-3).astype(np.float32)).to(cuda)
+    return mesh, cfg, lnormal, spt, rays, diff
+
+
+@pytest.mark.parametrize("num_samples", [50, 350, 5250, 20000])  # spt 1, 7,
+@pytest.mark.parametrize("normal,testing_flag", [                # 105, 400
+    ("fn", 1), ("vn", 0), ("vn", 1)])
+def test_backward_face_sums_kernel_matches_plain(cuda, normal, testing_flag,
+                                                 num_samples):
+    """K2 and its epilogue against their plain versions and the eager
+    backward_chunk (tap tables); two launches bit-identical; the epilogue
+    adds into a running gradient exactly as torch adds."""
+    mesh, cfg, lnormal, spt, rays, diff = _k2_chunk(cuda, normal,
+                                                    testing_flag, num_samples)
     args = bk.face_sum_inputs(rays, lnormal, diff, 0, cfg, spt)
-    sums = bk.backward_face_sums(*args)
-    sums2 = bk.backward_face_sums(*args)
+    before = (bk.backward_face_sums.launches, bk.vertex_epilogue.launches)
+    partial = bk.backward_face_sums(*args)
+    partial2 = bk.backward_face_sums(*args)
     sums_p = bk.backward_face_sums_plain(*args)
+    csr = bk.vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
+    g = bk.vertex_epilogue(partial, mesh, csr)
+    g2 = bk.vertex_epilogue(partial2, mesh, csr)
+    g0 = torch.randn(g.shape, generator=torch.Generator().manual_seed(0)).to(
+        cuda)
+    acc = bk.vertex_epilogue(partial, mesh, csr, g0.clone())
     torch.cuda.synchronize()
-    assert torch.equal(sums, sums2)
-    g = bk.vertex_gradient(sums, mesh)
+    assert torch.equal(partial, partial2) and torch.equal(g, g2)
+    assert torch.equal(acc, g0 + g)
+    assert (bk.backward_face_sums.launches - before[0],
+            bk.vertex_epilogue.launches - before[1]) == (2, 3)
+    sums = bk.slab_sum(partial)
+    torch.testing.assert_close(sums, sums_p, rtol=2e-4,
+                               atol=2e-5 * float(sums_p.abs().max()))
     g_ref = core.backward_chunk(rays, mesh, lnormal, diff, 0, cfg, spt)
     scale = float(g_ref.abs().max())
     assert scale > 0
     torch.testing.assert_close(g, g_ref, rtol=2e-4, atol=2e-5 * scale)
-    torch.testing.assert_close(sums, sums_p, rtol=2e-4,
+    torch.testing.assert_close(g, bk.vertex_gradient(sums, mesh), rtol=2e-4,
+                               atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("slab", [4, 7, 25])
+def test_backward_face_sums_any_slab(cuda, slab):
+    """Slabs that do not divide the 25 sources (4, 7) and one slab: the
+    same sums as the default plan within the plain version's tolerance."""
+    mesh, cfg, lnormal, spt, rays, diff = _k2_chunk(cuda, "vn", 0, 350)
+    args = bk.face_sum_inputs(rays, lnormal, diff, 0, cfg, spt)
+    partial = bk.backward_face_sums(*args, slab=slab)
+    assert partial.shape[0] == -(-25 // slab)
+    sums_p = bk.backward_face_sums_plain(*args)
+    torch.testing.assert_close(bk.slab_sum(partial), sums_p, rtol=2e-4,
                                atol=2e-5 * float(sums_p.abs().max()))
+    assert torch.equal(partial, bk.backward_face_sums(*args, slab=slab))
+
+
+def _no_sync(fn):
+    """fn() with every synchronizing CUDA call raising."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("normal,testing_flag", [("fn", 1), ("vn", 0)])
+def test_backward_chunk_fused_makes_no_synchronizing_call(cuda, normal,
+                                                          testing_flag):
+    """One chunk's fused backward, with the CSR built and the tap weights
+    cached, makes no host <-> device copy or synchronization."""
+    mesh, cfg, lnormal, spt, rays, diff = _k2_chunk(cuda, normal,
+                                                    testing_flag, 350)
+    csr = bk.vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
+
+    def chunk(grad):
+        return bk.backward_chunk_fused(rays, mesh, lnormal, diff, 0, cfg,
+                                       spt, csr=csr, grad=grad)
+    want = chunk(chunk(None).clone())
+    first = _no_sync(lambda: chunk(None))
+    got = _no_sync(lambda: chunk(first.clone()))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_fused_chunk_body_makes_no_synchronizing_call(cuda):
+    """A whole chunk of inverse_render (sampling, K1, smoothing, the
+    difference, K2, the epilogue), with the key on the card and the face
+    hierarchy and CSR built, makes no synchronizing call."""
+    from nlos_surface_optimization_torch.render import api
+
+    v, f = _bumpy()
+    mesh = pt.make_mesh(v, f, device=cuda)
+    cfg = pt.RenderConfig(num_samples=400, num_bins=300,
+                          distance_resolution=5e-3)
+    lighting, lnormal = (torch.from_numpy(x).to(cuda)
+                         for x in pt.make_confocal_scan(4))
+    data = torch.rand((16, 300), generator=torch.Generator().manual_seed(1)
+                      ).to(cuda) * 1e-3
+    w = torch.ones_like(data)
+    spt = cfg.samples_per_face(f.shape[0])
+    hier = fk.face_hierarchy(mesh.v, mesh.f, mesh.f_valid)
+    csr = bk.vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
+    key = pt.key(3).to(cuda)
+
+    def chunk():
+        return api._fused_chunk_body(mesh, lighting, lnormal, 0, key, data,
+                                     w, cfg, spt, hier, csr, None)
+    t_want, g_want = chunk()
+    t, g = _no_sync(chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(t, t_want) and torch.equal(g, g_want)
 
 
 @pytest.mark.parametrize("source_chunk", [0, 3])
