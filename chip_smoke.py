@@ -9,12 +9,13 @@ Phases, each printing one JSON line with the card's name and power limit:
            nvcc (sm_90a), one process per source, all started together
   k1       the fused occlusion + splat kernel against its plain PyTorch
            version: a small grazing scene; one flagship source chunk
-           (3,042 faces, 64 sources, 1.36 M rays); the loop's largest
-           chunk ("large": a 23,762-face height field, 64 sources, 1.5 M
-           rays); the GT render's shapes ("gt": 12,000 fine bins, 9
-           sources).  Equal masks, histogram within rtol 2e-6 / atol
-           1e-7*max, two launches bit-identical, the kernel's per-block
-           candidate counts equal to the plain broad phase's
+           (3,042 faces, 64 sources, 1.36 M rays), and the same chunk
+           with the GGX BRDF at alpha 0.2 ("flagship_ggx"); the loop's
+           largest chunk ("large": a 23,762-face height field, 64
+           sources, 1.5 M rays); the GT render's shapes ("gt": 12,000
+           fine bins, 9 sources).  Equal masks, histogram within rtol
+           2e-6 / atol 1e-7*max, two launches bit-identical, the kernel's
+           per-block candidate counts equal to the plain broad phase's
   k2       the fused backward face-sum kernel (tap reduction from the
            difference rows in the kernel) and its face -> vertex epilogue
            kernel against their plain versions on the flagship chunk
@@ -34,12 +35,34 @@ Phases, each printing one JSON line with the card's name and power limit:
   small    inverse_render on the card against the CPU on a small scene
   intensity render_intensity on the card against the CPU on a small scene:
            equal cull masks, intensities within rtol 2e-5
+  material_small
+           the material and jitter entry points on the card against the
+           CPU on the small scene, at the CPU tests' tolerances: GGX
+           render_transient and inverse_render ('fn'; 'vn' with the gn
+           term), inverse_render_albedo, inverse_render_alpha,
+           render_transient_jitter, inverse_render_jitter,
+           vertex_gradient_bins, inverse_shading_render, and
+           inverse_render with loss_smooth_width 2
   slice    the flagship iteration at full width: bench.py's 3,042-face
            height field, a 64x64 confocal scan, 20,000 samples per source,
            1,200 bins; a ground-truth render, then 3 descent steps from the
            flat plane (inverse_render, normal smoothing, auto smooth
            weight, Adam_Modified with the border learning-rate scale).
            Every kernel launch of this phase is counted.
+  ggx_slice the same GT render and 3 descent steps with the GGX BRDF (GT
+           at alpha 0.2, steps at the default 0.1): K1 forward, the eager
+           GGX backward (no K2 launch); its step seconds beside slice's
+  jitter   the measured-jitter path at full width: the flagship height
+           field, 64x64 scan, 20,000 samples, 1,200 bins, a 901-tap kernel
+           from the runner's synthetic jitter calibration; one
+           render_transient_jitter of the GT mesh and one
+           inverse_render_jitter from the flat plane, each traced through
+           K3 (one launch a chunk)
+  material the ggx scene's settings (64x64 scan, 20,000 samples, 1,200
+           bins; the runner's synthetic height field): a GT render at
+           alpha 0.2, initial_fitting_albedo, 5 optimize_alpha steps from
+           0.5, then 3 optimize_shape steps from the GT shape raised by 8
+           mm; finite values, falling losses, alpha moving toward 0.2
   loop     the system's entry point at full width:
            run_experiment("armadillo", max_iters=16) with the scene's own
            settings (64x64 scan, 20,000 samples, 1,200 bins; the synthetic
@@ -50,13 +73,18 @@ Phases, each printing one JSON line with the card's name and power limit:
   resume   run_experiment(..., resume=True) from that run's iteration-12
            checkpoint to 16: the histories, faces and vertices equal the
            uninterrupted run's exactly
+  ggx_loop run_experiment("ggx", max_iters=8) at the scene's own width
+           (GT with GGX at alpha 0.2, the loop at 0.1), through at least
+           one remesh; K1 launches held to the GT's and the steps' chunks,
+           K3's to the remeshes', K2 none
 
 Each K1 and K3 case prints the wrapper's time as a render calls it (the
 face hierarchy given), the kernel's (K1: occlusion and reduce apart), the
 hierarchy's build (prep_ms, once per render), the plain version's, the
 mean candidate groups per block, and a bound that does not depend on the
 broad phase (``occlusion_bound``).  Then one JSON line of per-kernel
-numbers (launches from the loop phase), the nvidia-smi line, and the
+numbers (launches from the loop phase; ``launches_by_path`` each path's,
+counted from 0 around it), the nvidia-smi line, and the
 closing {"ok": true, ...} line.  Any failed
 check raises; nothing falls back to the CPU.  With --profile, one more
 flagship descent step and one descent step at the "large" shapes (23,762
@@ -106,6 +134,13 @@ SCENE = "armadillo"
 LOOP_ITERS = 16
 RESUME_FROM = 12
 LOOP_SIZES = dict(scan_resolution=None, sample_num=None, gt_sample_num=None)
+GGX_LOOP_ITERS = 8
+# the material phase: the ggx scene's GT roughness, the alpha descent's
+# start and steps, and the shape steps
+ALPHA_STAR = 0.2
+ALPHA0 = 0.5
+ALPHA_STEPS = 5
+SHAPE_STEPS = 3
 CARD = ""
 SLEEP_CYCLES = 40_000_000   # device_ms's head start, ~20 ms at 1.98 GHz
 
@@ -414,9 +449,10 @@ def chunk_inputs(dev, v, f, splat):
     return args, kwargs
 
 
-def phase_k1(dev, chunk_inputs_):
-    """K1 on a small grazing scene, the flagship chunk, the loop's largest
-    chunk and the GT render's shapes."""
+def phase_k1(dev, chunk_inputs_, ggx_inputs_):
+    """K1 on a small grazing scene, the flagship chunk (Lambertian, and
+    GGX at alpha 0.2), the loop's largest chunk and the GT render's
+    shapes."""
     from nlos_surface_optimization_torch.geometry.mesh import make_mesh
     from nlos_surface_optimization_torch.render import fused_kernels as fk
 
@@ -430,6 +466,7 @@ def phase_k1(dev, chunk_inputs_):
     emit("k1", case="small", max_abs_err=err_s, occluded=int(occ_s.sum()))
 
     main, _ = k1_case("flagship", *chunk_inputs_)
+    k1_case("flagship_ggx", *ggx_inputs_, reps=5, plain_reps=1)
     lv, lf = large_scene()
     k1_case("large", *chunk_inputs(dev, lv, lf, True), reps=5, plain_reps=1)
     gt, _ = k1_case("gt", *gt_case_inputs(dev))
@@ -725,6 +762,28 @@ def phase_k3(dev, v, f):
 # ------------------------------------------------------------ checks
 
 
+def kernel_wrappers():
+    """The kernels' wrappers by name; each counts its launches."""
+    from nlos_surface_optimization_torch.render import bwd_kernels as bk
+    from nlos_surface_optimization_torch.render import fused_kernels as fk
+    from nlos_surface_optimization_torch.render import occl_kernels as ok
+
+    return {"occluded_splat": fk.occluded_splat,
+            "backward_face_sums": bk.backward_face_sums,
+            "vertex_epilogue": bk.vertex_epilogue,
+            "segment_occluded": ok.segment_occluded}
+
+
+def reset_launches():
+    torch.cuda.synchronize()
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
 def phase_uniforms(dev, F, spt):
     from nlos_surface_optimization_torch.geometry import sampling
 
@@ -789,6 +848,79 @@ def phase_intensity(dev):
         (got - want).abs().max()), kept=int(keep.sum()))
 
 
+def phase_material_small(dev):
+    """The material, jitter, legacy-loss and diagnostic entry points on the
+    card against the CPU on the tests' small scene, at the CPU tests'
+    tolerances: transients rtol 2e-5 / atol 1e-8, vertex gradients and
+    the per-bin diagnostic rtol 2e-4 / atol 2e-5*max, scalar gradients
+    rtol 1e-5.  The jitter and diagnostic calls must reach K3."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.render import occl_kernels as ok
+
+    v, f, _ = small_scene()
+    lighting, lnormal = pt.make_confocal_scan(4)
+    lam = pt.RenderConfig(num_samples=400, num_bins=300,
+                          distance_resolution=5e-3, source_chunk=3)
+    ggx_fn = lam.replace(brdf="ggx")
+    ggx_vn = ggx_fn.replace(normal="vn", testing_flag=0)
+    rng = np.random.RandomState(1)
+    data = (rng.rand(16, 300) * 1e-3).astype(np.float32)
+    w = (0.5 + rng.rand(16, 300)).astype(np.float32)
+    jw = rng.rand(31)
+    jw /= jw.sum()
+    jg = np.gradient(jw)
+    k = pt.key(3)
+    cases = [
+        ("ggx_render_fn", "t", False, lambda m: pt.render_transient(
+            m, lighting, lnormal, ggx_fn, k, alpha=0.25)[:1]),
+        ("ggx_render_vn", "t", True, lambda m: pt.render_transient(
+            m, lighting, lnormal, ggx_vn, k, alpha=0.25)[:1]),
+        ("ggx_inverse_fn", "tg", False, lambda m: pt.inverse_render(
+            m, data, w, lighting, lnormal, ggx_fn, k, alpha=0.25)[:2]),
+        ("ggx_inverse_vn", "tg", True, lambda m: pt.inverse_render(
+            m, data, w, lighting, lnormal, ggx_vn, k, alpha=0.25)[:2]),
+        ("albedo", "ts", False, lambda m: pt.inverse_render_albedo(
+            m, data, w, lighting, lnormal, lam, k)),
+        ("alpha", "ts", False, lambda m: pt.inverse_render_alpha(
+            m, data, w, lighting, lnormal, ggx_fn, k, 0.25)),
+        ("jitter_render", "t", False, lambda m: pt.render_transient_jitter(
+            m, lighting, lnormal, lam, k, jw, 25)[:1]),
+        ("jitter_inverse", "tg", False, lambda m: pt.inverse_render_jitter(
+            m, data, w, lighting, lnormal, lam, k, jw, jg, 25)[:2]),
+        ("vertex_gradient_bins", "g", False, lambda m: (
+            pt.vertex_gradient_bins(m, lighting, lnormal, lam, k, 14),)),
+        ("inverse_shading", "tg", False, lambda m: pt.inverse_shading_render(
+            m, data, w, lighting, lnormal, lam.replace(testing_flag=0),
+            k)[:2]),
+        ("loss_smooth_width", "tg", False, lambda m: pt.inverse_render(
+            m, data, w, lighting, lnormal, lam.replace(loss_smooth_width=2),
+            k)[:2]),
+    ]
+    errs = {}
+    for name, kinds, vn, fn in cases:
+        out = {}
+        before = ok.segment_occluded.launches
+        for where in (dev, "cpu"):
+            m = pt.make_mesh(v, f, device=where)
+            if vn:
+                m = m._replace(vn=pt.vertex_normals(m.v, m.f, m.f_valid))
+            out[str(where)] = [x.cpu() for x in fn(m)]
+        if name.startswith(("jitter", "vertex")):
+            require(ok.segment_occluded.launches > before,
+                    f"material_small {name}: K3 was not launched")
+        errs[name] = []
+        for kind, got, want in zip(kinds, out[str(dev)], out["cpu"]):
+            scale = float(want.abs().max())
+            require(bool(torch.isfinite(got).all()) and scale > 0,
+                    f"material_small {name}: not finite, or zero")
+            tol = {"t": dict(rtol=2e-5, atol=1e-8),
+                   "g": dict(rtol=2e-4, atol=2e-5 * scale),
+                   "s": dict(rtol=1e-5, atol=0.0)}[kind]
+            torch.testing.assert_close(got, want, **tol)
+            errs[name].append(float((got - want).abs().max()))
+    emit("material_small", max_abs_err=errs)
+
+
 # ------------------------------------------------------------ the slice
 
 
@@ -844,8 +976,6 @@ class Descent:
 
 def phase_slice(dev, v, f, plane, steps, profile_dir=None):
     import nlos_surface_optimization_torch as pt
-    from nlos_surface_optimization_torch.render import bwd_kernels as bk
-    from nlos_surface_optimization_torch.render import fused_kernels as fk
 
     cfg = pt.RenderConfig(**FLAGSHIP)
     lighting, lnormal = pt.make_confocal_scan(SCAN)
@@ -856,10 +986,7 @@ def phase_slice(dev, v, f, plane, steps, profile_dir=None):
     chunks = -(-L // cfg.source_chunk)
     key = pt.key(0)
 
-    fk.occluded_splat.launches = 0
-    bk.backward_face_sums.launches = 0
-    bk.vertex_epilogue.launches = 0
-    torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     gt, _ = pt.render_transient(pt.make_mesh(v, f, device=dev), lighting,
                                 lnormal, cfg, key)
@@ -885,18 +1012,220 @@ def phase_slice(dev, v, f, plane, steps, profile_dir=None):
         per_step.append(dt)
         emit("slice_step", step=i, l2=l2, data_l2=data_l2, seconds=dt,
              path_samples_per_sec=rate, grad_max=float(grad.abs().max()))
-    launches = {"occluded_splat": fk.occluded_splat.launches,
-                "backward_face_sums": bk.backward_face_sums.launches,
-                "vertex_epilogue": bk.vertex_epilogue.launches}
+    launches = read_launches()
     want = {"occluded_splat": chunks * (steps + 1),
             "backward_face_sums": chunks * steps,
-            "vertex_epilogue": chunks * steps}
+            "vertex_epilogue": chunks * steps, "segment_occluded": 0}
     require(launches == want, f"launch counts {launches}, expected {want}")
     emit("slice", scan=f"{SCAN}x{SCAN}", faces=F, spt=spt, chunks=chunks,
          rays_per_pass=L * F * spt, launches=launches,
          step_seconds=per_step, gt_seconds=gt_s)
     if profile_dir:
         profile_step(descent, profile_dir, "flagship")
+    return launches
+
+
+def phase_ggx_slice(dev, v, f, plane, steps):
+    """The slice's GT render and descent steps with the GGX BRDF (GT at
+    ALPHA_STAR, the steps at the default roughness 0.1): K1 forward, the
+    eager GGX backward."""
+    import nlos_surface_optimization_torch as pt
+
+    cfg = pt.RenderConfig(**FLAGSHIP).replace(brdf="ggx")
+    lighting, lnormal = (torch.from_numpy(x).to(dev)
+                         for x in pt.make_confocal_scan(SCAN))
+    L, F = lighting.shape[0], f.shape[0]
+    spt = cfg.samples_per_face(F)
+    chunks = -(-L // cfg.source_chunk)
+    reset_launches()
+    t0 = time.perf_counter()
+    gt, _ = pt.render_transient(pt.make_mesh(v, f, device=dev), lighting,
+                                lnormal, cfg, pt.key(0), alpha=ALPHA_STAR)
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(gt).all()) and float(gt.max()) > 0,
+            "GGX ground-truth transient is not finite and positive")
+    descent = Descent(plane, f, gt, lighting, lnormal, cfg, pt.key(0), dev)
+    per_step = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l2, data_l2, grad = descent.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        require(np.isfinite(l2) and bool(torch.isfinite(grad).all())
+                and float(grad.abs().max()) > 0,
+                f"GGX step {i}: loss or gradient not finite, or zero")
+        per_step.append(dt)
+        emit("ggx_slice_step", step=i, l2=l2, data_l2=data_l2, seconds=dt,
+             path_samples_per_sec=2.0 * L * F * spt / dt,
+             grad_max=float(grad.abs().max()))
+    launches = read_launches()
+    want = {"occluded_splat": chunks * (steps + 1), "backward_face_sums": 0,
+            "vertex_epilogue": 0, "segment_occluded": 0}
+    require(launches == want, f"launch counts {launches}, expected {want}")
+    emit("ggx_slice", faces=F, spt=spt, chunks=chunks, launches=launches,
+         step_seconds=per_step, gt_seconds=gt_s)
+    return launches
+
+
+def jitter_kernel(workdir):
+    """(weight [K], grad [K], offset) from the runner's jitter calibration
+    (its synthetic 901-sample histogram where no measured one is found):
+    one tap a calibration sample, normalized; the offset is the sample
+    nearest t = 0; grad its central differences."""
+    from nlos_surface_optimization_torch.experiments import run as runner
+
+    t, counts = runner._find_jitter_calibration(workdir)
+    w = counts / counts.sum()
+    return w, np.gradient(w), int(np.argmin(np.abs(t)))
+
+
+def phase_jitter(dev, v, f, plane, workdir):
+    """render_transient_jitter of the flagship mesh, then
+    inverse_render_jitter from its flat plane against it, at full width;
+    K3 once a chunk in each, no other kernel."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.optim import loss
+
+    cfg = pt.RenderConfig(**FLAGSHIP)
+    lighting, lnormal = (torch.from_numpy(x).to(dev)
+                         for x in pt.make_confocal_scan(SCAN))
+    L, F = lighting.shape[0], f.shape[0]
+    spt = cfg.samples_per_face(F)
+    chunks = -(-L // cfg.source_chunk)
+    jw, jg, off = jitter_kernel(workdir)
+    reset_launches()
+    t0 = time.perf_counter()
+    gt, _ = pt.render_transient_jitter(pt.make_mesh(v, f, device=dev),
+                                       lighting, lnormal, cfg, pt.key(0), jw,
+                                       off)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd_launches = read_launches()
+    require(bool(torch.isfinite(gt).all()) and float(gt.max()) > 0,
+            "jitter transient is not finite and positive")
+    weight = loss.create_weighting_function(gt, 1.0)
+    t0 = time.perf_counter()
+    t, g, _ = pt.inverse_render_jitter(pt.make_mesh(plane, f, device=dev), gt,
+                                       weight, lighting, lnormal, cfg,
+                                       pt.key(0), jw, jg, off)
+    torch.cuda.synchronize()
+    inv_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(t).all()) and bool(torch.isfinite(g).all())
+            and float(g.abs().max()) > 0,
+            "jitter gradient not finite, or zero")
+    launches = read_launches()
+    want = {"occluded_splat": 0, "backward_face_sums": 0,
+            "vertex_epilogue": 0, "segment_occluded": 2 * chunks}
+    require(fwd_launches["segment_occluded"] == chunks and launches == want,
+            f"launch counts {fwd_launches} then {launches}, expected "
+            f"{chunks} then {want}")
+    emit("jitter", taps=len(jw), offset=off, faces=F, spt=spt, chunks=chunks,
+         forward_seconds=fwd_s,
+         forward_path_samples_per_sec=L * F * spt / fwd_s, seconds=inv_s,
+         path_samples_per_sec=2.0 * L * F * spt / inv_s,
+         data_l2=float(loss.weighted_l2(gt, weight, t)),
+         grad_max=float(g.abs().max()), launches=launches)
+    return launches
+
+
+def _stamped(lines):
+    """A log that keeps (host time, message)."""
+    return lambda msg: lines.append((time.perf_counter(), msg))
+
+
+def _step_seconds(t0, lines):
+    times = [t0] + [t for t, _ in lines]
+    return [b - a for a, b in zip(times, times[1:])]
+
+
+def phase_material(dev, workdir):
+    """The ggx scene's material pipeline at its own settings: GT at
+    ALPHA_STAR, the closed-form albedo, ALPHA_STEPS roughness steps from
+    ALPHA0, then SHAPE_STEPS shape steps (at the recovered roughness)
+    from the GT shape raised by 8 mm; no plateau stop."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.experiments import run as runner
+    from nlos_surface_optimization_torch.experiments.scenes import SCENES
+    from nlos_surface_optimization_torch.geometry.accel import (
+        morton_order_faces,
+    )
+    from nlos_surface_optimization_torch.geometry.sampling import fold_in
+    from nlos_surface_optimization_torch.optim import loss, material
+
+    spec = SCENES["ggx"]
+    v, f = runner._load_gt_mesh(spec, None)
+    f = morton_order_faces(v, f)
+    res = spec.scan_resolution
+    cfg = pt.RenderConfig(num_samples=spec.sample_num,
+                          num_bins=spec.num_bins,
+                          distance_resolution=spec.distance_resolution,
+                          brdf="ggx", source_chunk=min(256, res * res))
+    lighting, lnormal = (torch.from_numpy(x).to(dev) for x in
+                         pt.make_confocal_scan(res, lower=spec.scan_lower,
+                                               upper=spec.scan_upper))
+    L, F = lighting.shape[0], f.shape[0]
+    spt = cfg.samples_per_face(F)
+    chunks = -(-L // cfg.source_chunk)
+    key = pt.key(11)
+    mesh = pt.make_mesh(v, f, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    gt, _ = pt.render_transient(mesh, lighting, lnormal, cfg, key, refine=1,
+                                alpha=ALPHA_STAR)
+    torch.cuda.synchronize()
+    gt_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(gt).all()) and float(gt.max()) > 0,
+            "material GT is not finite and positive")
+    weight = loss.create_weighting_function(gt, spec.gamma)
+    albedo = material.initial_fitting_albedo(mesh, gt.cpu().numpy(),
+                                             lighting, lnormal, cfg, key)
+    require(np.isfinite(albedo) and albedo > 0, f"albedo fit {albedo}")
+    mesh = material._with_albedo(mesh, albedo)
+
+    lines_a = []
+    t0 = time.perf_counter()
+    alpha, losses_a = material.optimize_alpha(
+        mesh, gt, weight, lighting, lnormal, cfg,
+        fold_in(key, torch.tensor([100]))[0], ALPHA0, lr=1e-2, T=ALPHA_STEPS,
+        loss_epsilon=-np.inf, log=_stamped(lines_a))
+    alpha_s = _step_seconds(t0, lines_a)
+    traj = [ALPHA0] + [float(m.rsplit(" ", 1)[1]) for _, m in lines_a]
+
+    v0 = mesh.v.clone()
+    v0[:, 2] += 0.008
+    lines_s = []
+    t0 = time.perf_counter()
+    shaped, _, l2_final, losses_s = material.optimize_shape(
+        mesh._replace(v=v0), gt, weight, lighting, lnormal, cfg,
+        fold_in(key, torch.tensor([200]))[0], T=SHAPE_STEPS,
+        loss_epsilon=-np.inf, alpha=alpha,
+        log=_stamped(lines_s))
+    torch.cuda.synchronize()
+    shape_s = _step_seconds(t0, [x for x in lines_s if " L2 " in x[1]])
+    launches = read_launches()
+    rate = [2.0 * L * F * spt / s for s in alpha_s + shape_s]
+    emit("material", scene="ggx", scan=f"{res}x{res}", faces=F, spt=spt,
+         chunks=chunks, gt_seconds=gt_s, albedo=albedo,
+         alpha_trajectory=traj, alpha_losses=losses_a,
+         alpha_step_seconds=alpha_s, shape_losses=losses_s,
+         shape_step_seconds=shape_s, path_samples_per_sec=rate,
+         launches=launches)
+    require(len(losses_a) == ALPHA_STEPS and len(losses_s) == SHAPE_STEPS,
+            "a descent stopped early")
+    require(bool(np.isfinite(losses_a + losses_s).all())
+            and np.isfinite(alpha) and np.isfinite(l2_final)
+            and bool(torch.isfinite(shaped.v).all()),
+            "material: a value is not finite")
+    require(losses_a[-1] < losses_a[0], f"alpha losses {losses_a} rise")
+    require(abs(alpha - ALPHA_STAR) < abs(ALPHA0 - ALPHA_STAR),
+            f"alpha went from {ALPHA0} to {alpha}, away from {ALPHA_STAR}")
+    require(losses_s[-1] < losses_s[0], f"shape losses {losses_s} rise")
+    want = {"occluded_splat": chunks * (2 + ALPHA_STEPS + SHAPE_STEPS),
+            "backward_face_sums": 0, "vertex_epilogue": 0,
+            "segment_occluded": 0}
+    require(launches == want, f"launch counts {launches}, expected {want}")
     return launches
 
 
@@ -933,44 +1262,37 @@ def gt_chunks(faces, samples, sources, shards):
                for s in np.array_split(np.arange(sources), shards))
 
 
-def phase_loop(dev, workdir, rec):
-    import nlos_surface_optimization_torch as pt
+def phase_loop(dev, workdir, rec, scene=SCENE, iters=LOOP_ITERS,
+               name="loop"):
+    """run_experiment(scene, max_iters=iters) at the scene's own width;
+    the launches held to the chunks the renders ran (K2 and its epilogue
+    once a step chunk for a Lambertian scene, none for GGX)."""
     from nlos_surface_optimization_torch.experiments import run as runner
     from nlos_surface_optimization_torch.experiments.scenes import SCENES
     from nlos_surface_optimization_torch.geometry import native
-    from nlos_surface_optimization_torch.render import bwd_kernels as bk
-    from nlos_surface_optimization_torch.render import fused_kernels as fk
-    from nlos_surface_optimization_torch.render import occl_kernels as ok
 
-    spec = SCENES[SCENE]
-    fk.occluded_splat.launches = 0
-    bk.backward_face_sums.launches = 0
-    bk.vertex_epilogue.launches = 0
-    ok.segment_occluded.launches = 0
-    torch.cuda.synchronize()
+    spec = SCENES[scene]
+    reset_launches()
     t0 = time.perf_counter()
     rec.log("start")
-    state, hist = runner.run_experiment(SCENE, workdir, max_iters=LOOP_ITERS,
+    state, hist = runner.run_experiment(scene, workdir, max_iters=iters,
                                         log=rec.log, device=dev, **LOOP_SIZES)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    launches = {"occluded_splat": fk.occluded_splat.launches,
-                "backward_face_sums": bk.backward_face_sums.launches,
-                "vertex_epilogue": bk.vertex_epilogue.launches,
-                "segment_occluded": ok.segment_occluded.launches}
+    launches = read_launches()
     loop = rec.loops[-1]
     steps = [r for r in loop.stats if r["kind"] == "step"]
     remeshes = [r for r in loop.stats if r["kind"] == "remesh"]
     for r in steps:
-        emit("loop_step", iteration=r["iteration"], seconds=r["seconds"],
+        emit(f"{name}_step", iteration=r["iteration"], seconds=r["seconds"],
              l2=hist["l2"][r["iteration"]], v2=hist["v2"][r["iteration"]],
              faces=r["faces"], spt=r["spt"], chunks=r["chunks"],
              path_samples_per_sec=2.0 * r["sources"] * r["faces"] * r["spt"]
              / r["seconds"])
     for r in remeshes:
-        emit("loop_remesh", **r)
-    require(len(hist["l2"]) == LOOP_ITERS and state.t == LOOP_ITERS,
-            f"the loop ran {len(hist['l2'])} of {LOOP_ITERS} iterations")
+        emit(f"{name}_remesh", **r)
+    require(len(hist["l2"]) == iters and state.t == iters,
+            f"the loop ran {len(hist['l2'])} of {iters} iterations")
     require(bool(np.isfinite(hist["l2"]).all()
                  and np.isfinite(hist["v2"]).all()), "l2 or v2 not finite")
     require(len(remeshes) >= 1, "no remesh ran")
@@ -981,13 +1303,13 @@ def phase_loop(dev, workdir, rec):
                    LOOP_SIZES["gt_sample_num"]
                    or min(spec.gt_sample_num, 200_000),
                    res * res, 16 if res >= 256 else 8)
+    k2 = sum(r["chunks"] for r in steps) if spec.brdf == "lambertian" else 0
     want = {"occluded_splat": gt + sum(r["chunks"] for r in steps),
-            "backward_face_sums": sum(r["chunks"] for r in steps),
-            "vertex_epilogue": sum(r["chunks"] for r in steps),
+            "backward_face_sums": k2, "vertex_epilogue": k2,
             "segment_occluded": sum(r["chunks"] for r in remeshes)}
     require(launches == want, f"launch counts {launches}, expected {want}")
     init = next(m for _, m in rec.lines if m.startswith("init mesh"))
-    emit("loop", scene=SCENE, scan=f"{res}x{res}", seconds=total,
+    emit(name, scene=scene, scan=f"{res}x{res}", seconds=total,
          gt_seconds=rec.at("LCT initialization") - rec.at("creating GT"),
          lct_seconds=rec.at("init mesh") - rec.at("LCT initialization"),
          init=init, gt_faces=gt_f.shape[0], gt_chunks=gt,
@@ -1131,43 +1453,66 @@ def run(dev, steps, profile_dir=None):
     spt = cfg.samples_per_face(f.shape[0])
     _, args, kwargs = core.splat_inputs(
         mesh, lc, nc, pt.key(0), cfg, spt, cfg.forward_refine)
-    k1 = phase_k1(dev, (args, kwargs))
+    _, ggx_args, ggx_kwargs = core.splat_inputs(
+        mesh, lc, nc, pt.key(0), cfg.replace(brdf="ggx"), spt,
+        cfg.forward_refine, alpha=ALPHA_STAR)
+    k1 = phase_k1(dev, (args, kwargs), (ggx_args, ggx_kwargs))
     k2, epi = phase_k2(dev, v, f)
     phase_sync(dev, v, f)
     k3 = phase_k3(dev, v, f)
     phase_uniforms(dev, f.shape[0], spt)
     phase_small(dev)
     phase_intensity(dev)
-    phase_slice(dev, v, f, plane, steps, profile_dir)
+    phase_material_small(dev)
+    paths = {"slice": phase_slice(dev, v, f, plane, steps, profile_dir)}
+    paths["ggx_slice"] = phase_ggx_slice(dev, v, f, plane, steps)
     if profile_dir:
         profile_large(dev, profile_dir)
-    rec = Recorder()
     with tempfile.TemporaryDirectory() as tmp:
+        paths["jitter"] = phase_jitter(dev, v, f, plane, tmp)
+        paths["material"] = phase_material(dev, tmp)
+        rec = Recorder()
         workdir = os.path.join(tmp, SCENE)
         launches, state, hist = phase_loop(dev, workdir, rec)
+        paths["loop"] = launches
         phase_resume(dev, workdir, state, hist, rec)
+        paths["ggx_loop"] = phase_loop(dev, os.path.join(tmp, "ggx"),
+                                       Recorder(), "ggx", GGX_LOOP_ITERS,
+                                       "ggx_loop")[0]
+
+    def by_path(name):
+        return {p: n[name] for p, n in paths.items()}
+
     pkg = "nlos_surface_optimization_torch"
     return [
         dict(name="occluded_splat", route="cuda",
              source=f"{pkg}/csrc/occluded_splat.cu",
              replaces="nlos_surface_optimization_tpu/render/"
                       "fused_kernels.py:122",
-             launches=launches["occluded_splat"], library_ms=None, **k1),
+             launches=launches["occluded_splat"],
+             launches_by_path=by_path("occluded_splat"), library_ms=None,
+             **k1),
         dict(name="backward_face_sums", route="cuda",
              source=f"{pkg}/csrc/backward_face_sums.cu",
              replaces="nlos_surface_optimization_tpu/render/"
                       "bwd_kernels.py:59",
-             launches=launches["backward_face_sums"], library_ms=None, **k2),
+             launches=launches["backward_face_sums"],
+             launches_by_path=by_path("backward_face_sums"), library_ms=None,
+             **k2),
         dict(name="vertex_epilogue", route="cuda",
              source=f"{pkg}/csrc/backward_face_sums.cu",
              replaces="nlos_surface_optimization_tpu/render/"
                       "bwd_kernels.py:300",
-             launches=launches["vertex_epilogue"], library_ms=None, **epi),
+             launches=launches["vertex_epilogue"],
+             launches_by_path=by_path("vertex_epilogue"), library_ms=None,
+             **epi),
         dict(name="segment_occluded", route="cuda",
              source=f"{pkg}/csrc/segment_occluded.cu",
              replaces="nlos_surface_optimization_tpu/render/"
                       "pallas_kernels.py:68",
-             launches=launches["segment_occluded"], library_ms=None, **k3),
+             launches=launches["segment_occluded"],
+             launches_by_path=by_path("segment_occluded"), library_ms=None,
+             **k3),
     ]
 
 

@@ -17,7 +17,10 @@ backend switches keep their values; what they select here:
                                   (geometry/intersect), then the eager splat
                 'mxu'             TPU-only; NotImplementedError
   bwd_backend   'auto' / 'fused'  fused per-face backward (render/bwd_kernels,
-                                  kernel on CUDA, plain version on CPU)
+                                  kernel on CUDA, plain version on CPU) for
+                                  the Lambertian vertex gradient; the GGX,
+                                  albedo, alpha and jitter gradients are
+                                  eager, as in the JAX package
                 'xla'             the eager render/core.backward_chunk
 """
 
@@ -31,6 +34,7 @@ import numpy as np
 
 OCCL_BACKENDS = ("auto", "fused", "pallas", "jnp")
 BWD_BACKENDS = ("auto", "fused", "xla")
+BRDFS = ("lambertian", "ggx")
 _TPU_ONLY = ("mxu",)
 
 
@@ -58,7 +62,7 @@ class RenderConfig:
     testing_flag: int = 1
     # loss_flag == 1 maps the difference d -> 2*d^3 before weighting
     loss_flag: int = 0
-    # 'lambertian'; 'ggx' is not ported yet
+    # 'lambertian' or 'ggx' (confocal GGX with roughness alpha, render/brdf)
     brdf: str = "lambertian"
 
     occl_t_rel: float = 1e-4
@@ -97,7 +101,7 @@ class RenderConfig:
 
 
 def check_backends(cfg: RenderConfig) -> None:
-    """Raise on backend values this package does not implement."""
+    """Raise on backend or BRDF values this package does not implement."""
     for field, known in (("occl_backend", OCCL_BACKENDS),
                          ("bwd_backend", BWD_BACKENDS)):
         value = getattr(cfg, field)
@@ -106,8 +110,8 @@ def check_backends(cfg: RenderConfig) -> None:
                 f"{field}={value!r} is a TPU backend; use one of {known}")
         if value not in known:
             raise ValueError(f"unknown {field} {value!r}")
-    if cfg.brdf != "lambertian":
-        raise NotImplementedError(f"brdf={cfg.brdf!r} is not ported yet")
+    if cfg.brdf not in BRDFS:
+        raise ValueError(f"unknown brdf {cfg.brdf!r}; one of {BRDFS}")
 
 
 def make_confocal_scan(

@@ -41,6 +41,8 @@ def create_gt(spec: SceneSpec, gt_v: np.ndarray, gt_f: np.ndarray,
     cfg = RenderConfig(num_samples=samples, num_bins=spec.num_bins,
                        distance_resolution=spec.distance_resolution,
                        source_chunk=chunk, brdf=spec.brdf)
+    # a GGX scene's GT renders at the scene's own roughness
+    alpha = spec.ggx_alpha if spec.brdf == "ggx" else None
     lighting, lnormal = make_confocal_scan(res, lower=spec.scan_lower,
                                            upper=spec.scan_upper)
     # Morton order keeps the occlusion kernel's candidate lists short; it
@@ -55,7 +57,7 @@ def create_gt(spec: SceneSpec, gt_v: np.ndarray, gt_f: np.ndarray,
         fn = os.path.join(out_dir, f"{spec.name}_transient_{res}_{i}.mat")
         if not os.path.exists(fn):
             t, _ = render_transient(mesh, lighting[idx], lnormal[idx], cfg,
-                                    key, refine=1)
+                                    key, refine=1, alpha=alpha)
             scipy.io.savemat(fn + ".tmp", {
                 "gt_transient": t.cpu().numpy(),
                 "gt_v": gt_v, "gt_f": gt_f,

@@ -9,8 +9,10 @@
         --workdir DIR --res 16 --iters 20
 
 runs on CUDA (``--device cpu`` for the plain PyTorch versions of the
-kernels).  Scenes with SPAD noise or the GGX BRDF raise NotImplementedError
-until those modules are ported.
+kernels).  The ``ggx`` scene renders its GT at the scene's roughness
+(0.2) and optimizes the shape with the loop's default roughness 0.1, as
+the JAX package does.  Scenes with SPAD noise raise NotImplementedError
+until that module is ported.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 from typing import Optional
 
 import numpy as np
+import scipy.io
 
 from ..config import RenderConfig, make_confocal_scan
 from ..geometry.mesh import make_mesh
@@ -38,10 +41,6 @@ def _check_ported(spec: SceneSpec) -> None:
         raise NotImplementedError(
             f"scene {spec.name!r} needs the SPAD noise model (noise/spad.py), "
             "not ported yet (ROADMAP queue 1, item 11)")
-    if spec.brdf != "lambertian":
-        raise NotImplementedError(
-            f"scene {spec.name!r} needs the {spec.brdf} BRDF "
-            "(render/brdf.py), not ported yet (ROADMAP queue 1, item 1)")
 
 
 def _load_gt_mesh(spec: SceneSpec, meshes: Optional[str]):
@@ -85,6 +84,29 @@ def _find_capture(spec: SceneSpec, workdir: str,
         f"no measured transient for scene '{spec.name}'; looked at "
         f"{[c for c in cands if c]} (set NLOS_DATA_DIR or pass "
         f"transient_path)")
+
+
+def _find_jitter_calibration(workdir: str):
+    """(jitters_s, counts) of the SPAD's temporal jitter: the measured
+    jitter.mat (t_1 seconds, counts_1) in the workdir or
+    $NLOS_DATA_DIR/noise/, else a synthetic histogram of the measured
+    one's envelope: 901 samples over [-84 ps, 650 ps], a 25 ps Gaussian
+    core and a 150 ps diffusion tail, ~3.57e6 counts in all."""
+    cands = [os.path.join(workdir, "jitter.mat")]
+    data_dir = os.environ.get("NLOS_DATA_DIR")
+    if data_dir:
+        cands.append(os.path.join(data_dir, "noise", "jitter.mat"))
+    for p in cands:
+        if os.path.exists(p):
+            m = scipy.io.loadmat(p)
+            return (np.asarray(m["t_1"]).ravel(),
+                    np.asarray(m["counts_1"]).ravel())
+    t = np.linspace(-84e-12, 650e-12, 901)
+    core = np.exp(-0.5 * (t / 25e-12) ** 2)
+    tail = 0.02 * np.exp(-np.maximum(t, 0.0) / 150e-12)
+    counts = core + tail
+    counts *= 3.57e6 / counts.sum()
+    return t, counts
 
 
 def _width(lighting) -> float:

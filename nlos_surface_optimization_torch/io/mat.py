@@ -1,10 +1,10 @@
 """.mat interop and checkpointing (numpy + scipy), copied from the JAX package.
 
-GT transient shards, measured captures, and the one-file resume checkpoint
-of the outer loop.  The checkpoint keys are the JAX package's (``v``,
-``f``, ``iteration``, ``rng_key``, ``opt_*``, ``ls_*`` loop-state scalars,
-``hist_*`` histories), so a checkpoint written by either package loads in
-the other.
+GT transient shards, measured captures, the measured jitter kernel, and
+the one-file resume checkpoint of the outer loop.  The checkpoint keys
+are the JAX package's (``v``, ``f``, ``iteration``, ``rng_key``,
+``opt_*``, ``ls_*`` loop-state scalars, ``hist_*`` histories), so a
+checkpoint written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -62,6 +62,17 @@ def load_real_capture(path: str, zero_bins: int = 600,
             lighting = lighting[idx]
         n = len(range(0, n, k))
     return t, lighting, n
+
+
+def load_jitter_calibration(path: str):
+    """Measured SPAD temporal-jitter kernel -> (weight [K] f64, grad [K]
+    f64, offset int), from the keys 'jitter_weight' [K,1], 'jitter_grad'
+    [K,1] and 'jitter_offset' (scalar) of jitter/jitter_info.mat."""
+    m = scipy.io.loadmat(path)
+    weight = np.asarray(m["jitter_weight"], dtype=np.float64).ravel()
+    grad = np.asarray(m["jitter_grad"], dtype=np.float64).ravel()
+    offset = int(np.asarray(m["jitter_offset"]).ravel()[0])
+    return weight, grad, offset
 
 
 def save_checkpoint(path: str, *, v: np.ndarray, f: np.ndarray,

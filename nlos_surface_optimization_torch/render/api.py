@@ -1,17 +1,29 @@
-"""Rendering entry points: the confocal transient and its vertex gradient.
+"""Rendering entry points: the confocal transient and its gradients.
 
-  render_transient   forward transient [L, B] (+ pathlengths [B])
-  render_intensity   per-face visibility intensity [F] (culling)
-  inverse_render     (transient, vertex gradient [V,3], pathlengths)
+  render_transient         forward transient [L, B] (+ pathlengths [B])
+  render_intensity         per-face visibility intensity [F] (culling)
+  inverse_render           (transient, vertex gradient [V,3], pathlengths)
+  inverse_shading_render   inverse_render with fresh vertex normals, 'vn'
+  inverse_render_albedo    (transient, scalar albedo gradient)
+  inverse_render_alpha     (transient, scalar GGX-roughness gradient)
+  render_transient_jitter  forward under a measured temporal kernel
+  inverse_render_jitter    (transient, vertex gradient, pathlengths) under it
+  vertex_gradient_bins     per-bin gradient diagnostic of one vertex [B,3]
+  transient_loss_and_grad  (weighted L2 loss, transient, vertex gradient)
 
 Sources are processed in chunks of cfg.source_chunk by a Python loop;
 on the card the kernels' view of the mesh (fused_kernels.face_hierarchy)
 is built once per call and handed to every chunk, as are the sampler's
-key (moved to the mesh's device once) and, for the fused backward, the
-vertex CSR of its epilogue (bwd_kernels.vertex_csr).  The ``*_host`` names
-are the same functions (in the JAX package they differ in where the
-chunk loop runs).  Everything runs on the mesh's device; numpy inputs
-are moved there.
+key and the jitter kernel (moved to the mesh's device once) and, for the
+fused backward, the vertex CSR of its epilogue
+(bwd_kernels.vertex_csr).  The ``*_host`` names are the same functions
+(in the JAX package they differ in where the chunk loop runs).
+Everything runs on the mesh's device; numpy inputs are moved there.
+
+``alpha``, the GGX roughness, defaults to f32 0.1, as in the JAX
+package; a Python float is rounded to f32 first (core._alpha_like).  The jitter
+forward and gradient trace through ``trace_chunk`` (the standalone
+visibility kernel) and splat eagerly at refine 1, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -22,17 +34,24 @@ from typing import Optional
 import torch
 
 from ..config import RenderConfig, check_backends
-from ..geometry.mesh import Mesh
+from ..geometry.mesh import Mesh, vertex_normals
 from .bwd_kernels import VertexCSR, backward_chunk_fused, vertex_csr
 from .fused_kernels import FaceHierarchy, face_hierarchy
 from .core import (
+    _lambertian_only,
+    backward_albedo_chunk,
+    backward_alpha_chunk,
     backward_chunk,
+    backward_jitter_chunk,
     forward_chunk,
     intensity_chunk,
     trace_chunk,
     trace_forward_fused,
+    vertex_gradient_bins_chunk,
 )
-from .kernels import smooth_and_coarsen
+from .kernels import box_smooth_difference, jitter_convolve, smooth_and_coarsen
+
+MODES = ("vertex", "albedo", "alpha")
 
 
 def _spt(cfg: RenderConfig, mesh: Mesh) -> int:
@@ -66,6 +85,23 @@ def _chunks(lighting, lighting_normal, cfg: RenderConfig):
             L, Lc, nc)
 
 
+def _setup(mesh: Mesh, lighting, lighting_normal, cfg: RenderConfig, key):
+    """Checks and the per-call state of a render: (spt, key on the mesh's
+    device, lit, nrm, L, Lc, nc)."""
+    check_backends(cfg)
+    dev = mesh.device
+    lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
+                                  _as_tensor(lighting_normal, dev), cfg)
+    return _spt(cfg, mesh), key.to(dev), lit, nrm, L, Lc, nc
+
+
+def _padded_rows(x, rows: int, device) -> torch.Tensor:
+    """x [L, B] as f32 on device, zero rows appended up to ``rows`` (zero
+    weight => zero difference => zero gradient)."""
+    x = _as_tensor(x, device)
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
+
+
 def _hierarchy(mesh: Mesh, cfg: RenderConfig) -> Optional[FaceHierarchy]:
     """The kernels' view of the mesh, built once per call for every chunk;
     None where no kernel reads it: on the CPU (the wrappers run their
@@ -76,37 +112,35 @@ def _hierarchy(mesh: Mesh, cfg: RenderConfig) -> Optional[FaceHierarchy]:
 
 
 def _trace_and_forward(mesh: Mesh, lc, nc_, key, cfg: RenderConfig, spt: int,
-                       off: int, refine: int, hier: Optional[FaceHierarchy]):
+                       off: int, refine: int, hier: Optional[FaceHierarchy],
+                       alpha=None):
     """(RayBatch, fine histogram) for one source chunk, through the fused
     kernel or the eager trace + splat pair (same semantics)."""
     if cfg.occl_backend in ("auto", "fused"):  # K1; 'pallas', 'jnp': below
         return trace_forward_fused(mesh, lc, nc_, key, cfg, spt, refine,
-                                   source_offset=off, hier=hier)
+                                   source_offset=off, hier=hier, alpha=alpha)
     rays = trace_chunk(mesh, lc, nc_, key, cfg, spt, source_offset=off,
                        hier=hier)
-    return rays, forward_chunk(rays, nc_, cfg, spt, refine)
+    return rays, forward_chunk(rays, nc_, cfg, spt, refine, alpha=alpha)
 
 
 def render_transient(mesh: Mesh, lighting, lighting_normal,
-                     cfg: RenderConfig, key, refine: Optional[int] = None):
+                     cfg: RenderConfig, key, refine: Optional[int] = None,
+                     alpha=None):
     """Forward confocal transient [L, B] and pathlengths [B].
 
     ``refine`` defaults to cfg.bin_refine_resolution; refine=1 gives the
     raw (unsmoothed) histogram."""
-    check_backends(cfg)
-    dev = mesh.device
-    spt = _spt(cfg, mesh)
+    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
+                                           cfg, key)
     r = cfg.bin_refine_resolution if refine is None else refine
-    key = key.to(dev)
-    lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
-                                  _as_tensor(lighting_normal, dev), cfg)
     hier = _hierarchy(mesh, cfg)
     fine = torch.cat([
         _trace_and_forward(mesh, lit[i], nrm[i], key, cfg, spt, i * Lc, r,
-                           hier)[1]
+                           hier, alpha)[1]
         for i in range(nc)], dim=0)[:L]
     t = smooth_and_coarsen(fine, cfg.distance_resolution, r, cfg.sigma_bin)
-    return t, pathlengths(cfg, dev)
+    return t, pathlengths(cfg, mesh.device)
 
 
 render_transient_host = render_transient
@@ -118,12 +152,8 @@ def render_intensity(mesh: Mesh, lighting, lighting_normal,
     invisible-triangle culling: the per-chunk intensities, each traced
     through ``trace_chunk`` (the standalone visibility kernel), added in
     chunk order."""
-    check_backends(cfg)
-    dev = mesh.device
-    spt = _spt(cfg, mesh)
-    key = key.to(dev)
-    lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
-                                  _as_tensor(lighting_normal, dev), cfg)
+    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
+                                           cfg, key)
     hier = _hierarchy(mesh, cfg)
     out = None
     for i in range(nc):
@@ -138,12 +168,13 @@ render_intensity_host = render_intensity
 
 
 def _difference(data, transient, weight, cfg: RenderConfig):
-    """weight * f(data - transient), f = identity or 2d^3."""
-    if cfg.loss_smooth_width > 0:
-        raise NotImplementedError("loss_smooth_width is not ported yet")
+    """weight * f(data - transient), f = identity or 2d^3, then the legacy
+    box smoothing where cfg.loss_smooth_width > 0."""
     d = data - transient
     if cfg.loss_flag == 1:
         d = 2.0 * d * d * d
+    if cfg.loss_smooth_width > 0:
+        d = box_smooth_difference(d, cfg.loss_smooth_width)
     return d * weight
 
 
@@ -154,54 +185,173 @@ def _use_fused_bwd(cfg: RenderConfig) -> bool:
 def _fused_chunk_body(mesh: Mesh, lc, nc_, off: int, key, dat, w,
                       cfg: RenderConfig, spt: int,
                       hier: Optional[FaceHierarchy],
-                      csr: Optional[VertexCSR], grad):
-    """(transient rows, running gradient + this chunk's vertex gradient)
-    for one source chunk: one trace serves the forward and the backward
-    (the difference is row-local).  The fused backward adds into grad in
-    place on the card; grad None starts the sum."""
+                      csr: Optional[VertexCSR], grad, mode: str = "vertex",
+                      alpha=None):
+    """(transient rows, running gradient + this chunk's gradient) for one
+    source chunk: one trace serves the forward and the backward (the
+    difference is row-local).  ``mode``: 'vertex' ([V,3]), 'albedo' or
+    'alpha' (scalars).  The fused backward adds into grad in place on the
+    card; grad None starts the sum."""
     refine = cfg.forward_refine
     rays, fine = _trace_and_forward(mesh, lc, nc_, key, cfg, spt, off, refine,
-                                    hier)
+                                    hier, alpha)
     transient = smooth_and_coarsen(fine, cfg.distance_resolution, refine,
                                    cfg.sigma_bin)
     diff = _difference(dat, transient, w, cfg)
-    if _use_fused_bwd(cfg):
+    if mode == "vertex" and _use_fused_bwd(cfg):
         return transient, backward_chunk_fused(rays, mesh, nc_, diff, 0, cfg,
                                                spt, csr=csr, grad=grad)
-    g = backward_chunk(rays, mesh, nc_, diff, 0, cfg, spt)
+    if mode == "vertex":
+        g = backward_chunk(rays, mesh, nc_, diff, 0, cfg, spt, alpha)
+    elif mode == "albedo":
+        g = backward_albedo_chunk(rays, nc_, diff, 0, cfg, spt)
+    elif mode == "alpha":
+        g = backward_alpha_chunk(rays, nc_, diff, 0, cfg, spt, alpha)
+    else:
+        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     return transient, g if grad is None else grad + g
 
 
-def inverse_render(mesh: Mesh, data, weight, lighting, lighting_normal,
-                   cfg: RenderConfig, key):
-    """(transient [L,B], vertex gradient [V,3], pathlengths [B]).
-
-    The gradient is of sum_{l,b} weight*(data - T_smooth)^2 averaged over
-    sources; per-chunk gradients are summed in chunk order, then divided
-    by L."""
-    check_backends(cfg)
+def _inverse(mesh: Mesh, data, weight, lighting, lighting_normal,
+             cfg: RenderConfig, key, mode: str, alpha):
+    """(transient [L,B], gradient) of sum_{l,b} weight*(data - T)^2
+    averaged over sources: per-chunk gradients summed in chunk order, then
+    divided by L."""
+    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
+                                           cfg, key)
     dev = mesh.device
-    spt = _spt(cfg, mesh)
-    key = key.to(dev)
-    lit, nrm, L, Lc, nc = _chunks(_as_tensor(lighting, dev),
-                                  _as_tensor(lighting_normal, dev), cfg)
-    pad = nc * Lc - L
-    # padded rows carry zero weight => zero difference => zero gradient
-    data_p = torch.nn.functional.pad(_as_tensor(data, dev), (0, 0, 0, pad))
-    weight_p = torch.nn.functional.pad(_as_tensor(weight, dev),
-                                       (0, 0, 0, pad))
+    data_p = _padded_rows(data, nc * Lc, dev)
+    weight_p = _padded_rows(weight, nc * Lc, dev)
     hier = _hierarchy(mesh, cfg)
     csr = (vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
-           if _use_fused_bwd(cfg) else None)
+           if mode == "vertex" and _use_fused_bwd(cfg) else None)
     parts, grad = [], None
     for i in range(nc):
         rows = slice(i * Lc, (i + 1) * Lc)
         t, grad = _fused_chunk_body(mesh, lit[i], nrm[i], i * Lc, key,
                                     data_p[rows], weight_p[rows], cfg, spt,
-                                    hier, csr, grad)
+                                    hier, csr, grad, mode, alpha)
         parts.append(t)
-    transient = torch.cat(parts, dim=0)[:L]
-    return transient, grad / float(L), pathlengths(cfg, dev)
+    return torch.cat(parts, dim=0)[:L], grad / float(L)
+
+
+def inverse_render(mesh: Mesh, data, weight, lighting, lighting_normal,
+                   cfg: RenderConfig, key, alpha=None):
+    """(transient [L,B], vertex gradient [V,3], pathlengths [B])."""
+    t, g = _inverse(mesh, data, weight, lighting, lighting_normal, cfg, key,
+                    "vertex", alpha)
+    return t, g, pathlengths(cfg, mesh.device)
 
 
 inverse_render_host = inverse_render
+
+
+def inverse_shading_render(mesh: Mesh, data, weight, lighting,
+                           lighting_normal, cfg: RenderConfig, key):
+    """inverse_render with freshly computed vertex normals and 'vn'
+    shading -> (transient, vertex gradient, pathlengths)."""
+    mesh = mesh._replace(vn=vertex_normals(mesh.v, mesh.f, mesh.f_valid))
+    return inverse_render(mesh, data, weight, lighting, lighting_normal,
+                          cfg.replace(normal="vn"), key)
+
+
+def inverse_render_albedo(mesh: Mesh, data, weight, lighting,
+                          lighting_normal, cfg: RenderConfig, key):
+    """(transient, scalar albedo gradient); Lambertian only (the JAX
+    package's albedo mode fails for 'ggx')."""
+    _lambertian_only(cfg, "inverse_render_albedo")
+    return _inverse(mesh, data, weight, lighting, lighting_normal, cfg, key,
+                    "albedo", None)
+
+
+def inverse_render_alpha(mesh: Mesh, data, weight, lighting, lighting_normal,
+                         cfg: RenderConfig, key, alpha):
+    """(transient, scalar GGX-roughness gradient at ``alpha``)."""
+    return _inverse(mesh, data, weight, lighting, lighting_normal, cfg, key,
+                    "alpha", alpha)
+
+
+def vertex_gradient_bins(mesh: Mesh, lighting, lighting_normal,
+                         cfg: RenderConfig, key, vertex_num: int):
+    """Per-bin single-vertex gradient diagnostic [B,3], summed over the
+    chunks in order; traced through ``trace_chunk``."""
+    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
+                                           cfg, key)
+    hier = _hierarchy(mesh, cfg)
+    out = None
+    for i in range(nc):
+        rays = trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
+                           source_offset=i * Lc, hier=hier)
+        part = vertex_gradient_bins_chunk(rays, mesh, nrm[i], vertex_num, cfg,
+                                          spt)
+        out = part if out is None else out + part
+    return out
+
+
+def _jitter(mesh: Mesh, data, weight, lighting, lighting_normal,
+            cfg: RenderConfig, key, jitter_weight, jitter_grad,
+            jitter_offset: int):
+    """(transient [L,B], vertex gradient or None) under the jitter kernel;
+    the gradient when ``data`` is given."""
+    _lambertian_only(cfg, "the jitter render")
+    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
+                                           cfg, key)
+    dev = mesh.device
+    jw = _as_tensor(jitter_weight, dev)
+    hier = _hierarchy(mesh, cfg)
+    if data is None:
+        hist = torch.cat([
+            forward_chunk(trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
+                                      source_offset=i * Lc, hier=hier),
+                          nrm[i], cfg, spt, refine=1)
+            for i in range(nc)], dim=0)[:L]
+        return jitter_convolve(hist, jw, jitter_offset), None
+    jg = _as_tensor(jitter_grad, dev)
+    data_p = _padded_rows(data, nc * Lc, dev)
+    weight_p = _padded_rows(weight, nc * Lc, dev)
+    parts, grad = [], None
+    for i in range(nc):
+        rows = slice(i * Lc, (i + 1) * Lc)
+        rays = trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
+                           source_offset=i * Lc, hier=hier)
+        transient = jitter_convolve(
+            forward_chunk(rays, nrm[i], cfg, spt, refine=1), jw,
+            jitter_offset)
+        diff = _difference(data_p[rows], transient, weight_p[rows], cfg)
+        g = backward_jitter_chunk(rays, mesh, nrm[i], diff, 0, cfg, spt, jw,
+                                  jg, jitter_offset)
+        grad = g if grad is None else grad + g
+        parts.append(transient)
+    return torch.cat(parts, dim=0)[:L], grad / float(L)
+
+
+def render_transient_jitter(mesh: Mesh, lighting, lighting_normal,
+                            cfg: RenderConfig, key, jitter_weight,
+                            jitter_offset: int):
+    """Forward transient [L,B] smoothed by a measured temporal kernel [K]
+    (T[l,b] = sum_i weight[i] * raw[l, b + offset - i]), pathlengths."""
+    t, _ = _jitter(mesh, None, None, lighting, lighting_normal, cfg, key,
+                   jitter_weight, None, jitter_offset)
+    return t, pathlengths(cfg, mesh.device)
+
+
+def inverse_render_jitter(mesh: Mesh, data, weight, lighting,
+                          lighting_normal, cfg: RenderConfig, key,
+                          jitter_weight, jitter_grad, jitter_offset: int):
+    """(transient, vertex gradient, pathlengths) under the measured jitter
+    kernel and its derivative ``jitter_grad``."""
+    t, g = _jitter(mesh, data, weight, lighting, lighting_normal, cfg, key,
+                   jitter_weight, jitter_grad, jitter_offset)
+    return t, g, pathlengths(cfg, mesh.device)
+
+
+def transient_loss_and_grad(mesh: Mesh, data, weight, lighting,
+                            lighting_normal, cfg: RenderConfig, key,
+                            alpha=None):
+    """(weighted L2 loss sum(w*(T - data)^2)/L, transient, vertex
+    gradient), without the smoothness term."""
+    t, g, _ = inverse_render(mesh, data, weight, lighting, lighting_normal,
+                             cfg, key, alpha)
+    diff = (t - _as_tensor(data, t.device)) * torch.sqrt(
+        _as_tensor(weight, t.device))
+    return (diff * diff).sum() / diff.shape[0], t, g

@@ -338,7 +338,8 @@ def face_sum_inputs(rays, lighting_normal, difference, source_offset: int,
     the chunk's difference rows, the tap weights and the scalars.  No
     tensor is computed here."""
     if cfg.brdf != "lambertian":
-        raise NotImplementedError(f"brdf={cfg.brdf!r} is not ported yet")
+        raise ValueError(f"the fused backward is Lambertian; brdf="
+                         f"{cfg.brdf!r} runs core.backward_chunk")
     Lc = rays.h.shape[0]
     refine = cfg.bin_refine_resolution
     vn = cfg.normal == "vn"

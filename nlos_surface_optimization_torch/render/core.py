@@ -4,7 +4,10 @@ Work for one source chunk is a dense set of rays [Lc, F, spt] (source x
 face x sample).  The forward bins each visible sample's contribution into
 a fine per-source histogram; the backward collapses the K-tap Gaussian
 loop of the gradient into two per-fine-bin table lookups per ray
-(``_tap_tables``), then reduces per face and scatters to vertices.
+(``_tap_tables``), then reduces per face and scatters to vertices.  The
+same structure gives the GGX vertex gradient, the measured-jitter
+gradient (per-bin correlation tables), the scalar albedo and roughness
+gradients and the per-bin diagnostic of one vertex.
 
 Deliberate deviations kept from the JAX package: out-of-range kernel taps
 are masked to zero, and a sample whose coarse bin lands exactly on
@@ -28,7 +31,8 @@ from ..config import RenderConfig
 from ..geometry.intersect import segment_occluded
 from ..geometry.mesh import Mesh, face_normals_areas, norm3, scatter_faces
 from ..geometry.sampling import stratified_barycoords
-from .kernels import grouped_gaussian_tables
+from . import brdf as ggx
+from .kernels import correlate_rows, gaussian_kernel, grouped_gaussian_tables
 
 _EPS = 1e-30
 
@@ -172,14 +176,14 @@ def trace_chunk(mesh: Mesh, lighting, lighting_normal, key, cfg: RenderConfig,
 
 
 def _contrib_and_bins(rays: RayBatch, lighting_normal, cfg: RenderConfig,
-                      spt: int, refine: int):
+                      spt: int, refine: int, alpha=None):
     """Per-ray forward contribution (masked by rays.valid and the bin
     range) and its fine bin clipped to [0, Bf)."""
     cos2 = _dot(lighting_normal[:, None, None, :], rays.dirs)
     cos3 = -_dot(rays.normal, rays.dirs)
     ff = torch.clamp(cos3 * cos2, min=0.0) / (rays.h * rays.h)
     contrib = rays.area[None, :, None] * rays.albedo * ff * ff
-    contrib = contrib * _brdf_value(rays, cfg)
+    contrib = contrib * _brdf_value(rays, cfg, alpha)
     contrib = torch.where(rays.valid, contrib, 0.0) / float(spt)
     Bf = cfg.num_bins * refine
     bin_f = fine_bins(rays.h, cfg.bin_lower, cfg.distance_resolution / refine)
@@ -190,17 +194,18 @@ def _contrib_and_bins(rays: RayBatch, lighting_normal, cfg: RenderConfig,
 
 def splat_inputs(mesh: Mesh, lighting, lighting_normal, key,
                  cfg: RenderConfig, spt: int, refine: int,
-                 source_offset: int = 0):
+                 source_offset: int = 0, alpha=None):
     """(RayBatch before occlusion, args, kwargs) of the fused occlusion +
     splat call for one source chunk: ``occluded_splat(*args, **kwargs)``.
 
-    The contribution is computed before occlusion (the kernel zeroes
-    occluded rays); rays whose contribution is zero everywhere get
-    t_self = 0 and skip the visibility test."""
+    The contribution (with the BRDF, GGX at roughness ``alpha``) is
+    computed before occlusion (the kernel zeroes occluded rays); rays
+    whose contribution is zero everywhere get t_self = 0 and skip the
+    visibility test."""
     rays_pre, (o, d, t, fid, v, f, f_valid), kwargs = occlusion_inputs(
         mesh, lighting, lighting_normal, key, cfg, spt, source_offset)
     contrib, bin_f = _contrib_and_bins(rays_pre, lighting_normal, cfg, spt,
-                                       refine)
+                                       refine, alpha)
     args = (o, d, t, fid, contrib.reshape(-1), bin_f.reshape(-1), v, f,
             f_valid, lighting.shape[0], cfg.num_bins * refine)
     return rays_pre, args, kwargs
@@ -208,7 +213,7 @@ def splat_inputs(mesh: Mesh, lighting, lighting_normal, key,
 
 def trace_forward_fused(mesh: Mesh, lighting, lighting_normal, key,
                         cfg: RenderConfig, spt: int, refine: int,
-                        source_offset: int = 0, hier=None):
+                        source_offset: int = 0, hier=None, alpha=None):
     """(RayBatch, fine histogram [Lc, num_bins*refine]) through the fused
     occlusion + splat kernel (render/fused_kernels.occluded_splat; ``hier``
     as for trace_chunk).
@@ -218,27 +223,43 @@ def trace_forward_fused(mesh: Mesh, lighting, lighting_normal, key,
 
     rays_pre, args, kwargs = splat_inputs(mesh, lighting, lighting_normal,
                                           key, cfg, spt, refine,
-                                          source_offset)
+                                          source_offset, alpha)
     occ, hist = occluded_splat(*args, **kwargs, hier=hier)
     rays = rays_pre._replace(
         valid=rays_pre.valid & ~occ.reshape(rays_pre.h.shape))
     return rays, hist
 
 
-def _brdf_value(rays: RayBatch, cfg: RenderConfig):
+def _alpha_like(alpha, x: torch.Tensor) -> torch.Tensor:
+    """The GGX roughness as a 0-dim tensor of x's dtype on x's device: a
+    tensor as it is, a number rounded to f32 first, None the JAX
+    package's default f32 0.1."""
+    if torch.is_tensor(alpha):
+        return alpha.to(x.device, x.dtype)
+    return torch.full((), 0.1 if alpha is None else float(alpha),
+                      dtype=torch.float32, device=x.device).to(x.dtype)
+
+
+def _shading_cos(rays: RayBatch) -> torch.Tensor:
+    """c = dot(shading normal, -dir), the GGX cosine."""
+    return -_dot(rays.normal, rays.dirs)
+
+
+def _brdf_value(rays: RayBatch, cfg: RenderConfig, alpha=None):
     """BRDF multiplier per ray (1 for Lambertian)."""
-    if cfg.brdf != "lambertian":
-        raise NotImplementedError(f"brdf={cfg.brdf!r} is not ported yet")
+    if cfg.brdf == "ggx":
+        return ggx.eval_scalar(_alpha_like(alpha, rays.h), _shading_cos(rays))
     return torch.ones_like(rays.h)
 
 
 def forward_chunk(rays: RayBatch, lighting_normal, cfg: RenderConfig,
-                  spt: int, refine: int):
+                  spt: int, refine: int, alpha=None):
     """Fine histogram [Lc, num_bins*refine] for one source chunk (eager
     splat; the forward clamps the cosine product)."""
     Lc = rays.h.shape[0]
     Bf = cfg.num_bins * refine
-    contrib, bin_f = _contrib_and_bins(rays, lighting_normal, cfg, spt, refine)
+    contrib, bin_f = _contrib_and_bins(rays, lighting_normal, cfg, spt, refine,
+                                       alpha)
     l_idx = torch.arange(Lc, device=bin_f.device)[:, None, None]
     seg = (l_idx * Bf + bin_f).reshape(-1)
     hist = torch.zeros(Lc * Bf, dtype=contrib.dtype, device=contrib.device)
@@ -257,31 +278,66 @@ def intensity_chunk(rays: RayBatch, lighting_normal, cfg: RenderConfig,
     return contrib.sum(dim=(0, 2))
 
 
-def _gradient_terms(rays: RayBatch, lighting_normal, cfg: RenderConfig):
-    """Per-ray gradient ingredients (t1 [.,3], t2 [.,3], intensity, ff2),
-    Lambertian BRDF, cosines clamped separately."""
-    if cfg.brdf != "lambertian":
-        raise NotImplementedError(f"brdf={cfg.brdf!r} is not ported yet")
-    onorm = lighting_normal[:, None, None, :]
-    cos2 = torch.clamp(_dot(onorm, rays.dirs), min=0.0)
+def _clamped_cosines(rays: RayBatch, lighting_normal):
+    """(cos2, cos3, ff2): the source and shading cosines clamped at 0
+    separately, as the gradients clamp them, and the squared form factor
+    (cos2*cos3/h^2)^2 without albedo or BRDF."""
+    cos2 = torch.clamp(_dot(lighting_normal[:, None, None, :], rays.dirs),
+                       min=0.0)
     cos3 = torch.clamp(-_dot(rays.normal, rays.dirs), min=0.0)
+    ff = cos2 * cos3 / (rays.h * rays.h)
+    return cos2, cos3, ff * ff
+
+
+def _gradient_terms(rays: RayBatch, lighting_normal, cfg: RenderConfig,
+                    alpha=None):
+    """Per-ray gradient ingredients (t1 [.,3], t2 [.,3], intensity, ff2),
+    cosines clamped separately; the GGX BRDF at roughness ``alpha`` where
+    cfg.brdf is 'ggx'."""
+    onorm = lighting_normal[:, None, None, :]
+    cos2, cos3, ff2 = _clamped_cosines(rays, lighting_normal)
     h = rays.h
-    ff = cos2 * cos3 / (h * h)
-    ff2 = ff * ff
     area_s = torch.clamp(rays.area, min=_EPS)[None, :, None, None]
     # 2*cos2*cos3*(onorm*cos3 - normal*cos2 + 4*(-dir)*cos2*cos3)/h^5
     t1_base = (2.0 * (cos2 * cos3)[..., None]
                * (onorm * cos3[..., None] - rays.normal * cos2[..., None]
                   + 4.0 * (-rays.dirs) * (cos2 * cos3)[..., None])
                / (h ** 5)[..., None])
-    intensity = rays.albedo * ff2
-    t1 = rays.albedo[..., None] * t1_base
-    t2 = rays.normal * intensity[..., None]
-    if cfg.normal == "vn" and cfg.testing_flag == 0:
-        gn = (-2.0 * rays.albedo[..., None] * rays.dirs
-              * (cos3 * cos2 * cos2)[..., None] / (h ** 4)[..., None])
-        gn = gn - rays.normal * _dot(gn, rays.normal)[..., None]
-        t2 = t2 + gn
+    use_gn = cfg.normal == "vn" and cfg.testing_flag == 0
+    if cfg.brdf == "ggx":
+        a = _alpha_like(alpha, h)
+        c = _shading_cos(rays)
+        bval = ggx.eval_scalar(a, c)
+        dscale = ggx.eval_cdiff(a, c)
+        # d(BRDF)/dn = dscale*w and d(BRDF)/dw = dscale*normal, w = -dir;
+        # d(BRDF)/d(point) = (-BRDF_dw + dir*dot(dir, BRDF_dw)) / h, or with
+        # ggx_compat_dx the reference's form dividing only the parallel
+        # part by h
+        brdf_dw = dscale[..., None] * rays.normal
+        par = rays.dirs * _dot(rays.dirs, brdf_dw)[..., None]
+        if cfg.ggx_compat_dx:
+            brdf_dx = -brdf_dw + par / h[..., None]
+        else:
+            brdf_dx = (-brdf_dw + par) / h[..., None]
+        intensity = rays.albedo * ff2 * bval
+        # the GGX t1 carries no albedo factor
+        t1 = t1_base * bval[..., None] + ff2[..., None] * brdf_dx
+        t2 = rays.normal * intensity[..., None]
+        if use_gn:
+            gn = (-2.0 * rays.dirs * (cos3 * cos2 * cos2 * bval)[..., None]
+                  / (h ** 4)[..., None])
+            gn = gn + ff2[..., None] * (dscale[..., None] * (-rays.dirs))
+            gn = gn - rays.normal * _dot(gn, rays.normal)[..., None]
+            t2 = t2 + gn
+    else:
+        intensity = rays.albedo * ff2
+        t1 = rays.albedo[..., None] * t1_base
+        t2 = rays.normal * intensity[..., None]
+        if use_gn:
+            gn = (-2.0 * rays.albedo[..., None] * rays.dirs
+                  * (cos3 * cos2 * cos2)[..., None] / (h ** 4)[..., None])
+            gn = gn - rays.normal * _dot(gn, rays.normal)[..., None]
+            t2 = t2 + gn
     t2 = t2 / (2.0 * area_s)
     return t1, t2, intensity, ff2
 
@@ -351,26 +407,160 @@ def opposite_edges(mesh: Mesh):
     return v3 - v2, v1 - v3, v2 - v1
 
 
-def backward_chunk(rays: RayBatch, mesh: Mesh, lighting_normal, difference,
-                   source_offset: int, cfg: RenderConfig, spt: int):
-    """Analytic vertex gradient for one source chunk -> [V,3] (sum over the
-    chunk's sources; the caller divides by the total source count).
+def _ray_weight(rays: RayBatch, spt: int) -> torch.Tensor:
+    """valid * area * (-2/spt) per ray."""
+    return (torch.where(rays.valid, 1.0, 0.0) * rays.area[None, :, None]
+            * (-2.0 / float(spt)))
 
-    The cross-product term is hoisted from per ray to per face: cross(t2,
-    e_k) is linear in t2 and e_k is constant per face."""
-    t1, t2, intensity, _ = _gradient_terms(rays, lighting_normal, cfg)
-    A, Bw = _tap_reductions(rays, difference, source_offset, cfg)
-    sigma2 = cfg.sigma * cfg.sigma
-    w = (torch.where(rays.valid, 1.0, 0.0) * rays.area[None, :, None]
-         * (-2.0 / float(spt)))
-    Aw = A * w
-    # P = (t1*A + gauss_vec) * w, gauss_vec = (2/s^2)*dir*intensity*Bw
-    P = t1 * Aw[..., None] + rays.dirs * (
-        (2.0 / sigma2) * intensity * Bw * w)[..., None]
-    S2 = t2 * Aw[..., None]
+
+def _vertex_sums(rays: RayBatch, mesh: Mesh, P, S2):
+    """[V,3] from per-ray P (bary-weighted into the face's slots) and S2
+    (summed per face, crossed with each slot's opposite edge): the cross
+    product is hoisted from per ray to per face, as cross(t2, e_k) is
+    linear in t2 and e_k is constant per face."""
     T2f = S2.sum(dim=(0, 2))
     edges = opposite_edges(mesh)
     per_face = torch.stack(
         [(P * rays.bary[..., k:k + 1]).sum(dim=(0, 2))
          + torch.linalg.cross(T2f, edges[k]) for k in range(3)], dim=1)
     return scatter_faces(per_face, mesh.f, mesh.v.shape[0])
+
+
+def backward_chunk(rays: RayBatch, mesh: Mesh, lighting_normal, difference,
+                   source_offset: int, cfg: RenderConfig, spt: int,
+                   alpha=None):
+    """Analytic vertex gradient for one source chunk -> [V,3] (sum over the
+    chunk's sources; the caller divides by the total source count); GGX
+    at roughness ``alpha`` where cfg.brdf is 'ggx'."""
+    t1, t2, intensity, _ = _gradient_terms(rays, lighting_normal, cfg, alpha)
+    A, Bw = _tap_reductions(rays, difference, source_offset, cfg)
+    sigma2 = cfg.sigma * cfg.sigma
+    w = _ray_weight(rays, spt)
+    Aw = A * w
+    # P = (t1*A + gauss_vec) * w, gauss_vec = (2/s^2)*dir*intensity*Bw
+    P = t1 * Aw[..., None] + rays.dirs * (
+        (2.0 / sigma2) * intensity * Bw * w)[..., None]
+    return _vertex_sums(rays, mesh, P, t2 * Aw[..., None])
+
+
+def _lambertian_only(cfg: RenderConfig, what: str) -> None:
+    """The JAX package computes these gradients with the Lambertian terms
+    only (it passes no roughness and fails for 'ggx'); say so."""
+    if cfg.brdf != "lambertian":
+        raise ValueError(f"{what} is defined for brdf='lambertian' only, "
+                         f"got {cfg.brdf!r}")
+
+
+def backward_jitter_chunk(rays: RayBatch, mesh: Mesh, lighting_normal,
+                          difference, source_offset: int, cfg: RenderConfig,
+                          spt: int, jitter_weight, jitter_grad,
+                          jitter_offset: int):
+    """Analytic vertex gradient under a measured temporal kernel -> [V,3].
+
+    Taps are integer shifts delta_i = i - offset of the sample's coarse
+    bin; per tap the gradient is
+        (t1*w_i + jg_i*intensity*(-2)*dir/res)*bary + cross(t2,e)*w_i
+    times -2*difference[bin + delta_i].  Both tap sums depend on the ray
+    only through its coarse bin, so they are per-bin tables, each a
+    correlation of the difference rows with the kernel (K can be ~901),
+    read with one gather per ray; taps outside the bins read zero."""
+    _lambertian_only(cfg, "the jitter gradient")
+    t1, t2, intensity, _ = _gradient_terms(rays, lighting_normal, cfg)
+    B = cfg.num_bins
+    res = cfg.distance_resolution
+    Lc = rays.h.shape[0]
+    dtype = rays.h.dtype
+    bin0 = fine_bins(rays.h, cfg.bin_lower, res)
+    # T[l, b] = sum_i k_i * diff[l, b + i - offset], b in [0, B]
+    diff_c = torch.nn.functional.pad(
+        difference[source_offset:source_offset + Lc].to(dtype), (0, 1))
+    K = len(jitter_weight)
+    A_tab, C_tab = (correlate_rows(diff_c, k, jitter_offset, K - 1
+                                   - jitter_offset)
+                    for k in (jitter_weight, jitter_grad))
+    bc = torch.clamp(bin0, 0, B).to(torch.int64)
+    flat = torch.arange(Lc, device=bc.device)[:, None, None] * (B + 1) + bc
+    zero = (bin0 < 0) | (bin0 > B)
+    A = torch.where(zero, 0.0, A_tab.reshape(-1)[flat])
+    C = torch.where(zero, 0.0, C_tab.reshape(-1)[flat])
+    w = _ray_weight(rays, spt)
+    Aw = A * w
+    P = t1 * Aw[..., None] + rays.dirs * (
+        (-2.0 / res) * intensity * C * w)[..., None]
+    return _vertex_sums(rays, mesh, P, t2 * Aw[..., None])
+
+
+def backward_albedo_chunk(rays: RayBatch, lighting_normal, difference,
+                          source_offset: int, cfg: RenderConfig, spt: int):
+    """Scalar albedo gradient of one source chunk: -2/spt * sum of
+    valid * area * ff^2 * A (cosines clamped separately, no albedo or
+    BRDF factor)."""
+    _lambertian_only(cfg, "the albedo gradient")
+    _, _, ff2 = _clamped_cosines(rays, lighting_normal)
+    A, _ = _tap_reductions(rays, difference, source_offset, cfg)
+    g = torch.where(rays.valid, ff2 * A, 0.0) * rays.area[None, :, None]
+    return (-2.0 / float(spt)) * g.sum()
+
+
+def backward_alpha_chunk(rays: RayBatch, lighting_normal, difference,
+                         source_offset: int, cfg: RenderConfig, spt: int,
+                         alpha):
+    """Scalar GGX-roughness gradient of one source chunk: -2/spt * sum of
+    valid * area * albedo * ff^2 * d(BRDF)/d(alpha) * A."""
+    adiff = ggx.eval_adiff(_alpha_like(alpha, rays.h), _shading_cos(rays))
+    _, _, ff2 = _clamped_cosines(rays, lighting_normal)
+    A, _ = _tap_reductions(rays, difference, source_offset, cfg)
+    g = torch.where(rays.valid, rays.albedo * ff2 * adiff * A, 0.0)
+    g = g * rays.area[None, :, None]
+    return (-2.0 / float(spt)) * g.sum()
+
+
+def vertex_gradient_bins_chunk(rays: RayBatch, mesh: Mesh, lighting_normal,
+                               vertex_num: int, cfg: RenderConfig, spt: int):
+    """Per-bin gradient diagnostic of one vertex -> [B,3] ('fn' gradient
+    terms, no difference weighting; the face-normal term is always on).
+    The K Gaussian taps each scatter into the coarse bins."""
+    _lambertian_only(cfg, "vertex_gradient_bins")
+    t1, _, intensity, _ = _gradient_terms(rays, lighting_normal,
+                                          cfg.replace(normal="fn"))
+    cos2, _, _ = _clamped_cosines(rays, lighting_normal)
+    fnb = rays.face_n[None, :, None, :].expand(rays.dirs.shape)
+    cos3 = torch.clamp(-_dot(fnb, rays.dirs), min=0.0)
+    gn = (-2.0 * rays.albedo[..., None] * rays.dirs
+          * (cos3 * cos2 * cos2)[..., None] / (rays.h ** 4)[..., None])
+    gn = gn - fnb * _dot(gn, fnb)[..., None]
+    area_s = torch.clamp(rays.area, min=_EPS)[None, :, None, None]
+    t2 = (fnb * intensity[..., None] + gn) / (2.0 * area_s)
+
+    weights, deltas = gaussian_kernel(cfg.distance_resolution,
+                                      cfg.bin_refine_resolution,
+                                      cfg.sigma_bin)
+    sigma2 = cfg.sigma * cfg.sigma
+    edges = opposite_edges(mesh)
+    # the vertex's barycentric slot (if any) per face
+    slot = [(mesh.f[:, k] == vertex_num)[None, :, None] for k in range(3)]
+    bary_k = sum(torch.where(slot[k], rays.bary[..., k], 0.0)
+                 for k in range(3))
+    edge_k = sum(torch.where(slot[k][..., None],
+                             edges[k][None, :, None, :].expand(t2.shape), 0.0)
+                 for k in range(3))
+    involved = slot[0] | slot[1] | slot[2]
+    scale = (torch.where(rays.valid & involved, 1.0, 0.0)
+             * rays.area[None, :, None] / float(spt))
+
+    B = cfg.num_bins
+    out = torch.zeros((B, 3), dtype=rays.h.dtype, device=rays.h.device)
+    two_h = 2.0 * rays.h
+    cross_term = torch.linalg.cross(t2, edge_k)
+    for w_i, d_i in zip(weights.tolist(), deltas.tolist()):
+        gauss = (2.0 * d_i / sigma2) * rays.dirs * intensity[..., None]
+        g = ((t1 + gauss) * bary_k[..., None] + cross_term) * w_i
+        g = g * scale[..., None]
+        b = torch.floor(_div(two_h + d_i - cfg.bin_lower,
+                             cfg.distance_resolution)).to(torch.int64)
+        ok = (b >= 0) & (b < B)
+        g = torch.where(ok[..., None], g, 0.0)
+        b = torch.clamp(b, 0, B - 1)
+        out = out + torch.zeros_like(out).index_add_(0, b.reshape(-1),
+                                                     g.reshape(-1, 3))
+    return out

@@ -1,4 +1,5 @@
-"""Temporal kernels: Gaussian smoothing of the fine histogram.
+"""Temporal kernels: Gaussian smoothing of the fine histogram, the measured
+SPAD jitter kernel, and the legacy box smoothing of the difference.
 
   sigma   = resolution * sigma_bin / 2.355
   taps    = 4 * refine * sigma_bin + 1 sub-bins of width resolution/refine
@@ -6,6 +7,10 @@
   w_i     = exp(-(delta_i/sigma)^2/2) / (sigma*sqrt(2*pi)) * resolution/refine
 The forward convolves the fine histogram with w ('same' alignment) and sums
 each group of `refine` fine bins into a coarse bin.
+
+A measured jitter kernel has ~900 taps, so the jitter and box filters run
+as one ``conv1d`` (``correlate_rows``) with TF32 off, whatever the global
+cuDNN setting.
 """
 
 from __future__ import annotations
@@ -62,3 +67,38 @@ def smooth_and_coarsen(fine_hist: torch.Tensor, resolution: float,
     for k in range(K):
         smoothed = smoothed + float(w[k]) * padded[:, 2 * c - k:2 * c - k + Bf]
     return smoothed.reshape(L, Bf // refine, refine).sum(dim=-1)
+
+
+def correlate_rows(x: torch.Tensor, kernel, left: int, right: int
+                   ) -> torch.Tensor:
+    """out[l, b] = sum_i kernel[i] * xp[l, b + i] for each row of x [L, n],
+    xp = x with ``left`` zeros before and ``right`` after each row (a
+    negative count crops); [L, n + left + right - K + 1].  One conv1d in
+    x's dtype, with TF32 off on the card."""
+    k = torch.as_tensor(kernel, dtype=x.dtype, device=x.device)
+    xp = torch.nn.functional.pad(x, (left, right))
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        out = torch.nn.functional.conv1d(xp[:, None, :], k.reshape(1, 1, -1))
+    return out[:, 0, :]
+
+
+def jitter_convolve(hist: torch.Tensor, weight, offset: int) -> torch.Tensor:
+    """Measured-SPAD-jitter smoothing of a coarse histogram [L, B]:
+    T[l, b] = sum_i weight[i] * hist[l, b + offset - i] (the full
+    convolution windowed at ``offset``)."""
+    w = torch.as_tensor(weight, dtype=hist.dtype, device=hist.device)
+    K = w.shape[0]
+    return correlate_rows(hist, torch.flip(w, (0,)), K - 1 - offset, offset)
+
+
+def box_smooth_difference(diff: torch.Tensor, width: int) -> torch.Tensor:
+    """Legacy loss smoothing: the difference convolved twice with a
+    normalized box of 2*width+1 taps, 'same' alignment (width 0: the
+    identity)."""
+    if width <= 0:
+        return diff
+    k = torch.full((2 * width + 1,), 1.0 / (2 * width + 1), dtype=diff.dtype,
+                   device=diff.device)
+    return correlate_rows(correlate_rows(diff, k, width, width), k, width,
+                          width)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.mesh import face_normals_areas, norm3, scatter_faces
+from ..geometry.mesh import total_area  # noqa: F401  (re-exported)
 
 
 def _scatter_cross(term, p1, p2, p3, f, num_v):
@@ -47,3 +48,11 @@ def normal_smoothing(v, f, f_valid, affinity):
     value = (area * (1.0 - (m * n).sum(dim=-1))).sum()
     residual = torch.where(f_valid[:, None], n - m, 0.0)
     return value, _scatter_cross(residual, p1, p2, p3, f, v.shape[0])
+
+
+def curvature_gradient_mesh(mesh):
+    return curvature_gradient(mesh.v, mesh.f, mesh.f_valid)
+
+
+def normal_smoothing_mesh(mesh, affinity):
+    return normal_smoothing(mesh.v, mesh.f, mesh.f_valid, affinity)

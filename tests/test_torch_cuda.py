@@ -381,3 +381,88 @@ def test_render_intensity_card_matches_cpu(cuda, source_chunk):
     aff = topology.face_affinity(f)
     assert np.array_equal(topology.remove_triangles(f, aff, got.numpy()),
                           topology.remove_triangles(f, aff, want.numpy()))
+
+
+@pytest.mark.parametrize("normal,testing_flag", [("fn", 1), ("vn", 0)])
+def test_occluded_splat_kernel_matches_plain_on_a_ggx_chunk(cuda, normal,
+                                                            testing_flag):
+    """K1 on a GGX chunk (the BRDF-weighted contribution, alpha 0.2):
+    equal masks, histogram within its tolerance, two launches equal."""
+    v, f = _bumpy(12)
+    mesh = pt.make_mesh(v, f, device=cuda)
+    if normal == "vn":
+        mesh = mesh._replace(vn=pt.vertex_normals(mesh.v, mesh.f,
+                                                  mesh.f_valid))
+    cfg = pt.RenderConfig(num_samples=4000, num_bins=300,
+                          distance_resolution=5e-3, brdf="ggx",
+                          normal=normal, testing_flag=testing_flag)
+    lighting, lnormal = (torch.from_numpy(x).to(cuda)
+                         for x in pt.make_confocal_scan(5))
+    spt = cfg.samples_per_face(f.shape[0])
+    _, args, kwargs = core.splat_inputs(
+        mesh, lighting, lnormal, pt.key(3).to(cuda), cfg, spt,
+        cfg.bin_refine_resolution, alpha=torch.tensor(0.2, device=cuda))
+    _, lam, _ = core.splat_inputs(
+        mesh, lighting, lnormal, pt.key(3).to(cuda), cfg.replace(
+            brdf="lambertian"), spt, cfg.bin_refine_resolution)
+    assert not torch.equal(args[4], lam[4])        # the BRDF is applied
+    before = fk.occluded_splat.launches
+    occ, hist = fk.occluded_splat(*args, **kwargs)
+    occ2, hist2 = fk.occluded_splat(*args, **kwargs)
+    occ_p, hist_p = fk.occluded_splat_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert fk.occluded_splat.launches - before == 2
+    assert torch.equal(occ, occ_p) and torch.equal(occ, occ2)
+    assert torch.equal(hist, hist2) and float(hist_p.max()) > 0
+    torch.testing.assert_close(hist, hist_p, rtol=2e-6,
+                               atol=1e-7 * float(hist_p.abs().max()))
+
+
+def test_inverse_render_jitter_card_matches_cpu(cuda):
+    """inverse_render_jitter through K3 on the card against the CPU (plain
+    occlusion) at the CPU tests' tolerances; one K3 launch a chunk."""
+    v, f = _bumpy()
+    lighting, lnormal = pt.make_confocal_scan(6)
+    cfg = pt.RenderConfig(num_samples=500, num_bins=500,
+                          distance_resolution=5e-3, source_chunk=10)
+    w = np.random.RandomState(3).rand(31)
+    w /= w.sum()
+    jg = np.gradient(w)
+    rng = np.random.RandomState(4)
+    data = (rng.rand(36, 500) * 1e-3).astype(np.float32)
+    weight = (0.5 + rng.rand(36, 500)).astype(np.float32)
+    before = ok.segment_occluded.launches
+    t, g, _ = pt.inverse_render_jitter(pt.make_mesh(v, f, device=cuda), data,
+                                       weight, lighting, lnormal, cfg,
+                                       pt.key(13), w, jg, 25)
+    assert ok.segment_occluded.launches - before == 4
+    t_c, g_c, _ = pt.inverse_render_jitter(pt.make_mesh(v, f, device="cpu"),
+                                           data, weight, lighting, lnormal,
+                                           cfg, pt.key(13), w, jg, 25)
+    torch.testing.assert_close(t.cpu(), t_c, rtol=2e-5, atol=1e-8)
+    scale = float(g_c.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(g.cpu(), g_c, rtol=2e-4, atol=2e-5 * scale)
+
+
+def test_jitter_convolve_ignores_global_tf32(cuda):
+    """With cuDNN's TF32 switched on globally, jitter_convolve on the card
+    still equals the CPU's f32 result within f32 rounding of a 901-term
+    sum (rtol 1e-5 / atol 1e-6*max; TF32 would be off by ~1e-3), and
+    leaves the global switch as it found it."""
+    from nlos_surface_optimization_torch.render.kernels import jitter_convolve
+
+    rng = np.random.RandomState(5)
+    hist = torch.from_numpy(rng.rand(64, 1200).astype(np.float32))
+    w = rng.rand(901)
+    w /= w.sum()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = jitter_convolve(hist.to(cuda), w, 21).cpu()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    want = jitter_convolve(hist, w, 21)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))

@@ -149,8 +149,51 @@ def test_run_experiment_end_to_end(tmp_path):
     assert any("init mesh" in m for m in logs)
 
 
-@pytest.mark.parametrize("scene,what", [("noise", "queue 1, item 11"),
-                                        ("ggx", "queue 1, item 1")])
+def test_run_experiment_ggx_end_to_end(tmp_path):
+    """The ggx scene on the CPU: GT shards rendered with GGX at the
+    scene's roughness 0.2, equal to JAX's create_gt (jit off, as in
+    test_create_gt_matches_jax) within its tolerance, then LCT init and
+    two loop iterations (GGX at the loop's default roughness 0.1)."""
+    spec = SCENES["ggx"]
+    assert spec.brdf == "ggx" and spec.ggx_alpha == 0.2
+    meshes = tmp_path / "meshes"
+    meshes.mkdir()
+    v, f = _grid_mesh(8, lambda x, y: 0.5 + 0.04 * np.sin(6 * x))
+    write_obj(str(meshes / spec.mesh_file), v, f)
+    work = str(tmp_path / "run")
+    logs = []
+    state, hist = prun.run_experiment(
+        "ggx", work, max_iters=2, scan_resolution=8, sample_num=2000,
+        gt_sample_num=2000, meshes=str(meshes), log=logs.append,
+        device="cpu")
+    assert len(hist["l2"]) == 2 and np.isfinite(hist["l2"]).all()
+    assert np.isfinite(hist["v2"]).all()
+    assert state.t == 2 and np.isfinite(state.v).all()
+    assert any("init mesh" in m for m in logs)
+
+    with jax.disable_jit():
+        files_j = jax_create_gt(jrun.SCENES["ggx"], v, f,
+                                str(tmp_path / "jax"), num_shards=8,
+                                resolution=8, sample_num=2000,
+                                key=jax.random.key(0))
+    files_p = sorted(os.listdir(os.path.join(work, "setup")))
+    assert files_p == sorted(os.path.basename(p) for p in files_j)
+    lam = scipy.io.loadmat(create_gt(SCENES["armadillo"], v, f,
+                                     str(tmp_path / "lam"), num_shards=8,
+                                     resolution=8, sample_num=2000,
+                                     key=pt.key(0), device="cpu")[3])
+    for fj in files_j:
+        got = scipy.io.loadmat(os.path.join(work, "setup",
+                                            os.path.basename(fj)))
+        want = scipy.io.loadmat(fj)
+        np.testing.assert_allclose(got["gt_transient"], want["gt_transient"],
+                                   rtol=2e-5, atol=1e-8)
+        assert want["gt_transient"].max() > 0
+    # the GGX GT is not the Lambertian one
+    assert not np.allclose(got["gt_transient"], lam["gt_transient"])
+
+
+@pytest.mark.parametrize("scene,what", [("noise", "queue 1, item 11")])
 def test_unported_scenes_raise(tmp_path, scene, what):
     with pytest.raises(NotImplementedError, match=what):
         prun.run_experiment(scene, str(tmp_path), max_iters=1, device="cpu")

@@ -110,7 +110,7 @@ def test_eager_backends_match_the_kernel_path(bumpy_mesh):
     ("occl_backend", "nope", ValueError),
     ("occl_backend", "mxu", NotImplementedError),
     ("bwd_backend", "nope", ValueError),
-    ("brdf", "ggx", NotImplementedError),
+    ("brdf", "phong", ValueError),
 ])
 def test_unported_options_raise(bumpy_mesh, field, value, error):
     v, f = bumpy_mesh
