@@ -13,7 +13,9 @@ Phases, each printing one JSON line with the card's name and power limit:
            with the GGX BRDF at alpha 0.2 ("flagship_ggx"); the loop's
            largest chunk ("large": a 23,762-face height field, 64
            sources, 1.5 M rays); the GT render's shapes ("gt": 12,000
-           fine bins, 9 sources).  Equal masks, histogram within rtol
+           fine bins, 9 sources); the material phase's ("material": the
+           ggx scene, GGX at 0.2, 256 sources, 5.4 M rays, 1,200 bins;
+           checked also at 12,000 bins).  Equal masks, histogram within rtol
            2e-6 / atol 1e-7*max, two launches bit-identical, the kernel's
            per-block candidate counts equal to the plain broad phase's
   k2       the fused backward face-sum kernel (tap reduction from the
@@ -51,10 +53,14 @@ Phases, each printing one JSON line with the card's name and power limit:
            Every kernel launch of this phase is counted.
   ggx_slice the same GT render and 3 descent steps with the GGX BRDF (GT
            at alpha 0.2, steps at the default 0.1): K1 forward, the eager
-           GGX backward (no K2 launch); its step seconds beside slice's
+           GGX backward (no K2 launch); its step seconds beside slice's,
+           and one flagship chunk's forward, backward and whole body
+           timed apart, GGX beside Lambertian ("ggx_chunk")
   jitter   the measured-jitter path at full width: the flagship height
-           field, 64x64 scan, 20,000 samples, 1,200 bins, a 901-tap kernel
-           from the runner's synthetic jitter calibration; one
+           field, 64x64 scan, 20,000 samples, 1,200 bins; two kernels from
+           the runner's synthetic jitter calibration: "binned" (summed onto
+           the 4 ps bins, 184 taps) and "raw901" (one tap a calibration
+           sample, a stress case ~5x the calibration's width); for each one
            render_transient_jitter of the GT mesh and one
            inverse_render_jitter from the flat plane, each traced through
            K3 (one launch a chunk)
@@ -143,6 +149,7 @@ ALPHA_STEPS = 5
 SHAPE_STEPS = 3
 CARD = ""
 SLEEP_CYCLES = 40_000_000   # device_ms's head start, ~20 ms at 1.98 GHz
+SPEED_OF_LIGHT = 299_792_458.0   # m/s: a jitter of t seconds is c*t of path
 
 
 def card_line() -> str:
@@ -449,10 +456,52 @@ def chunk_inputs(dev, v, f, splat):
     return args, kwargs
 
 
+def material_scene(dev):
+    """The ggx scene at its own settings, as phase_material renders it:
+    (mesh, lighting, lnormal, cfg with source_chunk 256, spec)."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.experiments import run as runner
+    from nlos_surface_optimization_torch.experiments.scenes import SCENES
+    from nlos_surface_optimization_torch.geometry.accel import (
+        morton_order_faces,
+    )
+
+    spec = SCENES["ggx"]
+    v, f = runner._load_gt_mesh(spec, None)
+    f = morton_order_faces(v, f)
+    res = spec.scan_resolution
+    cfg = pt.RenderConfig(num_samples=spec.sample_num,
+                          num_bins=spec.num_bins,
+                          distance_resolution=spec.distance_resolution,
+                          brdf="ggx", source_chunk=min(256, res * res))
+    lighting, lnormal = (torch.from_numpy(x).to(dev) for x in
+                         pt.make_confocal_scan(res, lower=spec.scan_lower,
+                                               upper=spec.scan_upper))
+    return pt.make_mesh(v, f, device=dev), lighting, lnormal, cfg, spec
+
+
+def material_case_inputs(dev, refine):
+    """K1 at the material phase's shapes: the first chunk (256 sources,
+    5.4 M rays) of the ggx scene with GGX at ALPHA_STAR, at ``refine``
+    (None: the forward refine, 1 at sigma_bin 1, which every render of the
+    phase runs: 1,200 bins a source)."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.render import core
+
+    mesh, lighting, lnormal, cfg, _ = material_scene(dev)
+    Lc = cfg.source_chunk
+    spt = cfg.samples_per_face(mesh.f.shape[0])
+    _, args, kwargs = core.splat_inputs(
+        mesh, lighting[:Lc], lnormal[:Lc], pt.key(11), cfg, spt,
+        cfg.forward_refine if refine is None else refine, alpha=ALPHA_STAR)
+    return args, kwargs
+
+
 def phase_k1(dev, chunk_inputs_, ggx_inputs_):
     """K1 on a small grazing scene, the flagship chunk (Lambertian, and
-    GGX at alpha 0.2), the loop's largest chunk and the GT render's
-    shapes."""
+    GGX at alpha 0.2), the loop's largest chunk, the GT render's shapes
+    and the material phase's (256 sources; also checked at refine 10,
+    12,000 bins a source)."""
     from nlos_surface_optimization_torch.geometry.mesh import make_mesh
     from nlos_surface_optimization_torch.render import fused_kernels as fk
 
@@ -470,6 +519,11 @@ def phase_k1(dev, chunk_inputs_, ggx_inputs_):
     lv, lf = large_scene()
     k1_case("large", *chunk_inputs(dev, lv, lf, True), reps=5, plain_reps=1)
     gt, _ = k1_case("gt", *gt_case_inputs(dev))
+    k1_case("material", *material_case_inputs(dev, None), reps=5,
+            plain_reps=1)
+    occ_m, _, err_m = check_k1(*material_case_inputs(dev, 10))
+    emit("k1", case="material_refine10", max_abs_err=err_m,
+         occluded=int(occ_m.sum()))
     ranges, slabs = fk.reduce_plan(
         gt["sources"], gt["bins"], -(-gt["rays"] // gt["sources"] // fk.RB),
         torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -608,13 +662,29 @@ def phase_k2(dev, v, f):
     return k2, epi
 
 
+def sync_calls(fn):
+    """The synchronizing calls of one fn() (after a warm call), under
+    torch.cuda.set_sync_debug_mode('warn')."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(m.message).splitlines()[0][:120] for m in seen
+            if "called a synchronizing" in str(m.message)]
+
+
 def phase_sync(dev, v, f):
     """One flagship chunk of inverse_render (key on the card, hierarchy and
     CSR built, warmed once) under torch.cuda.set_sync_debug_mode('warn'):
     the synchronizing calls of its backward (must be none) and of the
     whole chunk."""
-    import warnings
-
     import nlos_surface_optimization_torch as pt
     from nlos_surface_optimization_torch.render import api
     from nlos_surface_optimization_torch.render import bwd_kernels as bk
@@ -637,19 +707,8 @@ def phase_sync(dev, v, f):
         return api._fused_chunk_body(mesh, lighting, nc, 0, key, diff, w,
                                      cfg, spt, hier, csr, None)
 
-    counts = {}
-    for name, fn in (("backward", backward), ("chunk", chunk)):
-        fn()
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        counts[name] = [str(m.message).splitlines()[0][:120] for m in seen
-                        if "called a synchronizing" in str(m.message)]
+    counts = {name: sync_calls(fn)
+              for name, fn in (("backward", backward), ("chunk", chunk))}
     emit("sync", backward_syncs=len(counts["backward"]),
          chunk_syncs=len(counts["chunk"]), chunk_calls=counts["chunk"])
     require(not counts["backward"],
@@ -1066,25 +1125,80 @@ def phase_ggx_slice(dev, v, f, plane, steps):
     require(launches == want, f"launch counts {launches}, expected {want}")
     emit("ggx_slice", faces=F, spt=spt, chunks=chunks, launches=launches,
          step_seconds=per_step, gt_seconds=gt_s)
+    ggx_chunk_times(dev, v, f)
     return launches
 
 
-def jitter_kernel(workdir):
-    """(weight [K], grad [K], offset) from the runner's jitter calibration
-    (its synthetic 901-sample histogram where no measured one is found):
-    one tap a calibration sample, normalized; the offset is the sample
-    nearest t = 0; grad its central differences."""
+def ggx_chunk_times(dev, v, f):
+    """Where a GGX step's extra time goes, on one flagship chunk (64
+    sources, 1.36 M rays, 'fn', the default roughness): the forward (trace
+    + K1, the GGX weights formed in splat_inputs), the backward (the eager
+    GGX backward against the fused Lambertian one, K2 + epilogue) and the
+    whole chunk body, GGX beside Lambertian.  ``*_ms`` with the host's
+    time (timed_ms), ``backward_device_ms`` on the card alone (device_ms;
+    it counts host time too where the call synchronizes, see
+    ``ggx_backward_syncs``)."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.render import api
+    from nlos_surface_optimization_torch.render import bwd_kernels as bk
+    from nlos_surface_optimization_torch.render import core
+    from nlos_surface_optimization_torch.render import fused_kernels as fk
+
+    rays, mesh, nc, diff, cfg, spt = k2_case_inputs(
+        dev, v, f, "fn", FLAGSHIP["source_chunk"])
+    cfgs = {"lambertian": cfg, "ggx": cfg.replace(brdf="ggx")}
+    lc = torch.from_numpy(pt.make_confocal_scan(SCAN)[0][
+        :FLAGSHIP["source_chunk"]]).to(dev)
+    hier = fk.face_hierarchy(mesh.v, mesh.f, mesh.f_valid)
+    csr = bk.vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
+    key = pt.key(0).to(dev)
+    w = torch.ones_like(diff)
+    grad = torch.zeros_like(mesh.v)
+    backward = {
+        "lambertian": lambda: bk.backward_chunk_fused(
+            rays, mesh, nc, diff, 0, cfg, spt, csr=csr, grad=grad),
+        "ggx": lambda: core.backward_chunk(rays, mesh, nc, diff, 0,
+                                           cfgs["ggx"], spt)}
+    rec = dict(
+        forward_ms={n: timed_ms(lambda c=c: core.trace_forward_fused(
+            mesh, lc, nc, key, c, spt, c.forward_refine, hier=hier), 10)
+            for n, c in cfgs.items()},
+        backward_ms={n: timed_ms(b, 10) for n, b in backward.items()},
+        backward_device_ms={n: device_ms(b, 10)
+                            for n, b in backward.items()},
+        chunk_ms={n: timed_ms(lambda c=c: api._fused_chunk_body(
+            mesh, lc, nc, 0, key, diff, w, c, spt, hier, csr, None), 10)
+            for n, c in cfgs.items()},
+        ggx_backward_syncs=len(sync_calls(backward["ggx"])))
+    emit("ggx_chunk", rays=rays.h.numel(), **rec)
+
+
+def jitter_kernels(workdir, resolution):
+    """{name: (weight [K], grad [K], offset)} from the runner's jitter
+    calibration (its synthetic 901-sample histogram over [-84 ps, 650 ps]
+    where no measured one is found), each normalized with its offset the
+    tap of t = 0 and its grad the central differences:
+    'binned', the counts summed onto the transient's bins (``resolution``
+    of path a tap, c*t: ~184 taps at 1.2 mm), the kernel such a capture
+    gives; 'raw901', one tap a calibration sample, ~5x as wide in time as
+    the calibration, a stress case for the 900-tap correlations."""
     from nlos_surface_optimization_torch.experiments import run as runner
 
     t, counts = runner._find_jitter_calibration(workdir)
-    w = counts / counts.sum()
-    return w, np.gradient(w), int(np.argmin(np.abs(t)))
+    tap = np.rint(t * SPEED_OF_LIGHT / resolution).astype(np.int64)
+    binned = np.bincount(tap - tap.min(), weights=counts)
+    out = {}
+    for name, c, off in (("binned", binned, int(-tap.min())),
+                         ("raw901", counts, int(np.argmin(np.abs(t))))):
+        w = c / c.sum()
+        out[name] = (w, np.gradient(w), off)
+    return out
 
 
 def phase_jitter(dev, v, f, plane, workdir):
-    """render_transient_jitter of the flagship mesh, then
-    inverse_render_jitter from its flat plane against it, at full width;
-    K3 once a chunk in each, no other kernel."""
+    """For each jitter kernel: render_transient_jitter of the flagship
+    mesh, then inverse_render_jitter from its flat plane against it, at
+    full width; K3 once a chunk in each, no other kernel."""
     import nlos_surface_optimization_torch as pt
     from nlos_surface_optimization_torch.optim import loss
 
@@ -1094,39 +1208,46 @@ def phase_jitter(dev, v, f, plane, workdir):
     L, F = lighting.shape[0], f.shape[0]
     spt = cfg.samples_per_face(F)
     chunks = -(-L // cfg.source_chunk)
-    jw, jg, off = jitter_kernel(workdir)
+    kernels = jitter_kernels(workdir, cfg.distance_resolution)
     reset_launches()
-    t0 = time.perf_counter()
-    gt, _ = pt.render_transient_jitter(pt.make_mesh(v, f, device=dev),
-                                       lighting, lnormal, cfg, pt.key(0), jw,
-                                       off)
-    torch.cuda.synchronize()
-    fwd_s = time.perf_counter() - t0
-    fwd_launches = read_launches()
-    require(bool(torch.isfinite(gt).all()) and float(gt.max()) > 0,
-            "jitter transient is not finite and positive")
-    weight = loss.create_weighting_function(gt, 1.0)
-    t0 = time.perf_counter()
-    t, g, _ = pt.inverse_render_jitter(pt.make_mesh(plane, f, device=dev), gt,
-                                       weight, lighting, lnormal, cfg,
-                                       pt.key(0), jw, jg, off)
-    torch.cuda.synchronize()
-    inv_s = time.perf_counter() - t0
-    require(bool(torch.isfinite(t).all()) and bool(torch.isfinite(g).all())
-            and float(g.abs().max()) > 0,
-            "jitter gradient not finite, or zero")
+    for name, (jw, jg, off) in kernels.items():
+        before = read_launches()["segment_occluded"]
+        t0 = time.perf_counter()
+        gt, _ = pt.render_transient_jitter(pt.make_mesh(v, f, device=dev),
+                                           lighting, lnormal, cfg, pt.key(0),
+                                           jw, off)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        fwd_launches = read_launches()["segment_occluded"] - before
+        require(bool(torch.isfinite(gt).all()) and float(gt.max()) > 0,
+                f"jitter {name}: transient is not finite and positive")
+        weight = loss.create_weighting_function(gt, 1.0)
+        t0 = time.perf_counter()
+        t, g, _ = pt.inverse_render_jitter(pt.make_mesh(plane, f, device=dev),
+                                           gt, weight, lighting, lnormal, cfg,
+                                           pt.key(0), jw, jg, off)
+        torch.cuda.synchronize()
+        inv_s = time.perf_counter() - t0
+        inv_launches = (read_launches()["segment_occluded"] - before
+                        - fwd_launches)
+        require(bool(torch.isfinite(t).all())
+                and bool(torch.isfinite(g).all())
+                and float(g.abs().max()) > 0,
+                f"jitter {name}: gradient not finite, or zero")
+        require(fwd_launches == chunks and inv_launches == chunks,
+                f"jitter {name}: K3 launched {fwd_launches} then "
+                f"{inv_launches} times, expected {chunks} each")
+        emit("jitter", kernel=name, taps=len(jw), offset=off, faces=F,
+             spt=spt, chunks=chunks, forward_seconds=fwd_s,
+             forward_path_samples_per_sec=L * F * spt / fwd_s, seconds=inv_s,
+             path_samples_per_sec=2.0 * L * F * spt / inv_s,
+             data_l2=float(loss.weighted_l2(gt, weight, t)),
+             grad_max=float(g.abs().max()))
     launches = read_launches()
     want = {"occluded_splat": 0, "backward_face_sums": 0,
-            "vertex_epilogue": 0, "segment_occluded": 2 * chunks}
-    require(fwd_launches["segment_occluded"] == chunks and launches == want,
-            f"launch counts {fwd_launches} then {launches}, expected "
-            f"{chunks} then {want}")
-    emit("jitter", taps=len(jw), offset=off, faces=F, spt=spt, chunks=chunks,
-         forward_seconds=fwd_s,
-         forward_path_samples_per_sec=L * F * spt / fwd_s, seconds=inv_s,
-         path_samples_per_sec=2.0 * L * F * spt / inv_s,
-         data_l2=float(loss.weighted_l2(gt, weight, t)),
-         grad_max=float(g.abs().max()), launches=launches)
+            "vertex_epilogue": 0,
+            "segment_occluded": 2 * chunks * len(kernels)}
+    require(launches == want, f"launch counts {launches}, expected {want}")
     return launches
 
 
@@ -1146,30 +1267,15 @@ def phase_material(dev, workdir):
     ALPHA0, then SHAPE_STEPS shape steps (at the recovered roughness)
     from the GT shape raised by 8 mm; no plateau stop."""
     import nlos_surface_optimization_torch as pt
-    from nlos_surface_optimization_torch.experiments import run as runner
-    from nlos_surface_optimization_torch.experiments.scenes import SCENES
-    from nlos_surface_optimization_torch.geometry.accel import (
-        morton_order_faces,
-    )
     from nlos_surface_optimization_torch.geometry.sampling import fold_in
     from nlos_surface_optimization_torch.optim import loss, material
 
-    spec = SCENES["ggx"]
-    v, f = runner._load_gt_mesh(spec, None)
-    f = morton_order_faces(v, f)
+    mesh, lighting, lnormal, cfg, spec = material_scene(dev)
     res = spec.scan_resolution
-    cfg = pt.RenderConfig(num_samples=spec.sample_num,
-                          num_bins=spec.num_bins,
-                          distance_resolution=spec.distance_resolution,
-                          brdf="ggx", source_chunk=min(256, res * res))
-    lighting, lnormal = (torch.from_numpy(x).to(dev) for x in
-                         pt.make_confocal_scan(res, lower=spec.scan_lower,
-                                               upper=spec.scan_upper))
-    L, F = lighting.shape[0], f.shape[0]
+    L, F = lighting.shape[0], mesh.f.shape[0]
     spt = cfg.samples_per_face(F)
     chunks = -(-L // cfg.source_chunk)
     key = pt.key(11)
-    mesh = pt.make_mesh(v, f, device=dev)
     reset_launches()
     t0 = time.perf_counter()
     gt, _ = pt.render_transient(mesh, lighting, lnormal, cfg, key, refine=1,

@@ -51,7 +51,7 @@ from .core import (
 )
 from .kernels import box_smooth_difference, jitter_convolve, smooth_and_coarsen
 
-MODES = ("vertex", "albedo", "alpha")
+MODES = ("vertex", "albedo", "alpha", "jitter")
 
 
 def _spt(cfg: RenderConfig, mesh: Mesh) -> int:
@@ -186,17 +186,26 @@ def _fused_chunk_body(mesh: Mesh, lc, nc_, off: int, key, dat, w,
                       cfg: RenderConfig, spt: int,
                       hier: Optional[FaceHierarchy],
                       csr: Optional[VertexCSR], grad, mode: str = "vertex",
-                      alpha=None):
+                      alpha=None, jitter=None):
     """(transient rows, running gradient + this chunk's gradient) for one
     source chunk: one trace serves the forward and the backward (the
     difference is row-local).  ``mode``: 'vertex' ([V,3]), 'albedo' or
-    'alpha' (scalars).  The fused backward adds into grad in place on the
+    'alpha' (scalars), or 'jitter' ([V,3] under ``jitter`` = (weight,
+    grad, offset): traced through ``trace_chunk``, splatted at refine 1
+    and convolved).  The fused backward adds into grad in place on the
     card; grad None starts the sum."""
-    refine = cfg.forward_refine
-    rays, fine = _trace_and_forward(mesh, lc, nc_, key, cfg, spt, off, refine,
-                                    hier, alpha)
-    transient = smooth_and_coarsen(fine, cfg.distance_resolution, refine,
-                                   cfg.sigma_bin)
+    if mode == "jitter":
+        jw, jg, joff = jitter
+        rays = trace_chunk(mesh, lc, nc_, key, cfg, spt, source_offset=off,
+                           hier=hier)
+        transient = jitter_convolve(forward_chunk(rays, nc_, cfg, spt,
+                                                  refine=1), jw, joff)
+    else:
+        refine = cfg.forward_refine
+        rays, fine = _trace_and_forward(mesh, lc, nc_, key, cfg, spt, off,
+                                        refine, hier, alpha)
+        transient = smooth_and_coarsen(fine, cfg.distance_resolution, refine,
+                                       cfg.sigma_bin)
     diff = _difference(dat, transient, w, cfg)
     if mode == "vertex" and _use_fused_bwd(cfg):
         return transient, backward_chunk_fused(rays, mesh, nc_, diff, 0, cfg,
@@ -207,13 +216,16 @@ def _fused_chunk_body(mesh: Mesh, lc, nc_, off: int, key, dat, w,
         g = backward_albedo_chunk(rays, nc_, diff, 0, cfg, spt)
     elif mode == "alpha":
         g = backward_alpha_chunk(rays, nc_, diff, 0, cfg, spt, alpha)
+    elif mode == "jitter":
+        g = backward_jitter_chunk(rays, mesh, nc_, diff, 0, cfg, spt, jw, jg,
+                                  joff)
     else:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     return transient, g if grad is None else grad + g
 
 
 def _inverse(mesh: Mesh, data, weight, lighting, lighting_normal,
-             cfg: RenderConfig, key, mode: str, alpha):
+             cfg: RenderConfig, key, mode: str, alpha, jitter=None):
     """(transient [L,B], gradient) of sum_{l,b} weight*(data - T)^2
     averaged over sources: per-chunk gradients summed in chunk order, then
     divided by L."""
@@ -230,7 +242,7 @@ def _inverse(mesh: Mesh, data, weight, lighting, lighting_normal,
         rows = slice(i * Lc, (i + 1) * Lc)
         t, grad = _fused_chunk_body(mesh, lit[i], nrm[i], i * Lc, key,
                                     data_p[rows], weight_p[rows], cfg, spt,
-                                    hier, csr, grad, mode, alpha)
+                                    hier, csr, grad, mode, alpha, jitter)
         parts.append(t)
     return torch.cat(parts, dim=0)[:L], grad / float(L)
 
@@ -288,50 +300,22 @@ def vertex_gradient_bins(mesh: Mesh, lighting, lighting_normal,
     return out
 
 
-def _jitter(mesh: Mesh, data, weight, lighting, lighting_normal,
-            cfg: RenderConfig, key, jitter_weight, jitter_grad,
-            jitter_offset: int):
-    """(transient [L,B], vertex gradient or None) under the jitter kernel;
-    the gradient when ``data`` is given."""
-    _lambertian_only(cfg, "the jitter render")
-    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
-                                           cfg, key)
-    dev = mesh.device
-    jw = _as_tensor(jitter_weight, dev)
-    hier = _hierarchy(mesh, cfg)
-    if data is None:
-        hist = torch.cat([
-            forward_chunk(trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
-                                      source_offset=i * Lc, hier=hier),
-                          nrm[i], cfg, spt, refine=1)
-            for i in range(nc)], dim=0)[:L]
-        return jitter_convolve(hist, jw, jitter_offset), None
-    jg = _as_tensor(jitter_grad, dev)
-    data_p = _padded_rows(data, nc * Lc, dev)
-    weight_p = _padded_rows(weight, nc * Lc, dev)
-    parts, grad = [], None
-    for i in range(nc):
-        rows = slice(i * Lc, (i + 1) * Lc)
-        rays = trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
-                           source_offset=i * Lc, hier=hier)
-        transient = jitter_convolve(
-            forward_chunk(rays, nrm[i], cfg, spt, refine=1), jw,
-            jitter_offset)
-        diff = _difference(data_p[rows], transient, weight_p[rows], cfg)
-        g = backward_jitter_chunk(rays, mesh, nrm[i], diff, 0, cfg, spt, jw,
-                                  jg, jitter_offset)
-        grad = g if grad is None else grad + g
-        parts.append(transient)
-    return torch.cat(parts, dim=0)[:L], grad / float(L)
-
-
 def render_transient_jitter(mesh: Mesh, lighting, lighting_normal,
                             cfg: RenderConfig, key, jitter_weight,
                             jitter_offset: int):
     """Forward transient [L,B] smoothed by a measured temporal kernel [K]
     (T[l,b] = sum_i weight[i] * raw[l, b + offset - i]), pathlengths."""
-    t, _ = _jitter(mesh, None, None, lighting, lighting_normal, cfg, key,
-                   jitter_weight, None, jitter_offset)
+    _lambertian_only(cfg, "the jitter render")
+    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
+                                           cfg, key)
+    hier = _hierarchy(mesh, cfg)
+    hist = torch.cat([
+        forward_chunk(trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
+                                  source_offset=i * Lc, hier=hier),
+                      nrm[i], cfg, spt, refine=1)
+        for i in range(nc)], dim=0)[:L]
+    t = jitter_convolve(hist, _as_tensor(jitter_weight, mesh.device),
+                        jitter_offset)
     return t, pathlengths(cfg, mesh.device)
 
 
@@ -340,8 +324,11 @@ def inverse_render_jitter(mesh: Mesh, data, weight, lighting,
                           jitter_weight, jitter_grad, jitter_offset: int):
     """(transient, vertex gradient, pathlengths) under the measured jitter
     kernel and its derivative ``jitter_grad``."""
-    t, g = _jitter(mesh, data, weight, lighting, lighting_normal, cfg, key,
-                   jitter_weight, jitter_grad, jitter_offset)
+    _lambertian_only(cfg, "the jitter render")
+    jitter = (_as_tensor(jitter_weight, mesh.device),
+              _as_tensor(jitter_grad, mesh.device), jitter_offset)
+    t, g = _inverse(mesh, data, weight, lighting, lighting_normal, cfg, key,
+                    "jitter", None, jitter)
     return t, g, pathlengths(cfg, mesh.device)
 
 

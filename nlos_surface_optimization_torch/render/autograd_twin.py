@@ -31,16 +31,15 @@ def _phi(x, sigma: float):
 
 def twin_transient_from_rays(v, mesh: Mesh, rays: RayBatch, lighting,
                              lighting_normal, cfg: RenderConfig, spt: int,
-                             alpha=None, clamp_mode: str = "separate",
-                             detach_normal: bool = True):
+                             alpha=None, detach_normal: bool = True):
     """Smoothed transient [Lc, B] as a differentiable function of the
     vertex positions ``v`` [V,3]; barycoords, visibility and face validity
     come detached from ``rays``.
 
-    clamp_mode 'separate' clamps the cosines as the gradient does,
-    'product' as the forward does.  detach_normal=True holds the shading
-    normal fixed, as the analytic gradient does (no d(normal)/dv term in
-    'fn' mode); False gives the true gradient of the smoothed render."""
+    The cosines are clamped one by one, as the gradient does.
+    detach_normal=True holds the shading normal fixed, as the analytic
+    gradient does (no d(normal)/dv term in 'fn' mode); False gives the
+    true gradient of the smoothed render."""
     f = mesh.f
     bary = rays.bary.detach()
     valid = rays.valid.detach()
@@ -75,10 +74,7 @@ def twin_transient_from_rays(v, mesh: Mesh, rays: RayBatch, lighting,
     onorm = lighting_normal[:, None, None, :]
     cos2 = (onorm * d).sum(-1)
     cos3 = -(nrm * d).sum(-1)
-    if clamp_mode == "separate":
-        ff = torch.clamp(cos2, min=0.0) * torch.clamp(cos3, min=0.0) / (h * h)
-    else:
-        ff = torch.clamp(cos3 * cos2, min=0.0) / (h * h)
+    ff = torch.clamp(cos2, min=0.0) * torch.clamp(cos3, min=0.0) / (h * h)
     c = alb * ff * ff
     if cfg.brdf == "ggx":
         c = c * ggx.eval_scalar(_alpha_like(alpha, h), cos3)
@@ -93,12 +89,11 @@ def twin_transient_from_rays(v, mesh: Mesh, rays: RayBatch, lighting,
 
 
 def twin_transient(mesh: Mesh, lighting, lighting_normal, cfg: RenderConfig,
-                   key, alpha=None, clamp_mode: str = "separate"):
+                   key, alpha=None):
     """Differentiable smoothed transient [L,B] of one chunk of all sources;
     the gradient flows to mesh.v."""
     spt = cfg.samples_per_face(int(mesh.f.shape[0]))
     with torch.no_grad():
         rays = trace_chunk(mesh, lighting, lighting_normal, key, cfg, spt)
     return twin_transient_from_rays(mesh.v, mesh, rays, lighting,
-                                    lighting_normal, cfg, spt, alpha=alpha,
-                                    clamp_mode=clamp_mode)
+                                    lighting_normal, cfg, spt, alpha=alpha)

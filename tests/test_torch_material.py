@@ -281,6 +281,80 @@ def test_twin_ggx(bumpy_mesh):
                   alpha=torch.tensor(0.3, dtype=torch.float64), rtol=2e-2)
 
 
+@pytest.mark.parametrize("detach", [False, True])
+def test_twin_gradient_matches_jax_and_fd(plane_mesh, detach):
+    """Mirror of test_render.py::test_gradient_finite_difference in f64:
+    the twin's autograd gradient with the shading normal detached or not
+    equals jax.grad of JAX's twin on the same rays (rtol 1e-9, the same
+    f64 operations summed in another order).  Not detached it is the true
+    gradient: central differences of the loss agree (rtol 1e-4), and the
+    analytic gradient, which omits d(normal)/dv in 'fn', points the same
+    way (cosine > 0.9, norm ratio in (0.5, 2))."""
+    from nlos_surface_optimization_tpu.render.autograd_twin import (
+        twin_transient_from_rays as jtwin,
+    )
+    from nlos_surface_optimization_tpu.render.core import (
+        trace_chunk as jtrace,
+    )
+
+    v, f = plane_mesh
+    v = v.astype(np.float64)
+    kw = dict(num_samples=400, num_bins=150, distance_resolution=1e-2,
+              sigma_bin=5, bin_refine_resolution=4)
+    jcfg, pcfg = nst.RenderConfig(**kw), pt.RenderConfig(**kw)
+    lighting, lnormal = (x.astype(np.float64)
+                         for x in nst.make_confocal_scan(4))
+    spt = pcfg.samples_per_face(f.shape[0])
+    jm = jmesh.make_mesh(v, f, dtype=np.float64)
+    pm = pt.make_mesh(v, f, device="cpu", dtype=np.float64)
+    jl, jn = jnp.asarray(lighting), jnp.asarray(lnormal)
+    pl, pn = torch.from_numpy(lighting), torch.from_numpy(lnormal)
+    jrays = jtrace(jm, jl, jn, jax.random.key(KEY), jcfg, spt)
+    prays = trace_chunk(pm, pl, pn, pt.key(KEY), pcfg, spt)
+    # the production renders are f32
+    pm32 = pt.make_mesh(plane_mesh[0], f, device="cpu")
+    t_ref, _ = pt.render_transient(pm32, lighting, lnormal, pcfg, pt.key(KEY))
+    data = t_ref.numpy() * (1 + 0.3 * np.random.RandomState(0).rand(
+        *t_ref.shape))
+
+    def jloss(vv):
+        t = jtwin(vv, jm._replace(v=vv), jrays, jl, jn, jcfg, spt,
+                  detach_normal=detach)
+        return jnp.sum((jnp.asarray(data) - t) ** 2)
+
+    def ploss(vv):
+        t = twin_transient_from_rays(vv, pm._replace(v=vv), prays, pl, pn,
+                                     pcfg, spt, detach_normal=detach)
+        return ((torch.from_numpy(data) - t) ** 2).sum()
+
+    want = np.asarray(jax.grad(jloss)(jm.v))
+    vv = pm.v.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(ploss(vv), vv)
+    got = got.numpy()
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-9,
+                               atol=1e-12 * np.abs(want).max())
+    if detach:
+        return
+    eps = 1e-5
+    checks = [(0, 2), (1, 2), (3, 2), (0, 0), (2, 1)]
+    fd, an = np.zeros(len(checks)), np.zeros(len(checks))
+    for i, (vi, ci) in enumerate(checks):
+        vp, vm = pm.v.clone(), pm.v.clone()
+        vp[vi, ci] += eps
+        vm[vi, ci] -= eps
+        fd[i] = (float(ploss(vp)) - float(ploss(vm))) / (2 * eps)
+        an[i] = got[vi, ci]
+    np.testing.assert_allclose(an, fd, rtol=1e-4, atol=1e-8 * np.abs(fd).max())
+    _, g, _ = pt.inverse_render(pm32, data, np.ones_like(data), lighting,
+                                lnormal, pcfg, pt.key(KEY))
+    g_an = g.numpy()[:v.shape[0]] * lighting.shape[0]
+    gt = got[:v.shape[0]]
+    cos = np.sum(g_an * gt) / (np.linalg.norm(g_an) * np.linalg.norm(gt))
+    assert cos > 0.9, cos
+    assert 0.5 < np.linalg.norm(g_an) / np.linalg.norm(gt) < 2.0
+
+
 def test_twin_transient_matches_jax(bumpy_mesh):
     """The twin's forward against JAX's on the same rays (f32)."""
     from nlos_surface_optimization_tpu.render.autograd_twin import (
