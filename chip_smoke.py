@@ -83,6 +83,27 @@ Phases, each printing one JSON line with the card's name and power limit:
            (GT with GGX at alpha 0.2, the loop at 0.1), through at least
            one remesh; K1 launches held to the GT's and the steps' chunks,
            K3's to the remeshes', K2 none
+  lct      the LCT init on the card against the CPU at the loop's shapes
+           (the armadillo scene's 64x64 x 1,200-bin GT; the stand-in
+           capture at 64x64 x 2,048): grids and init mesh bit for bit
+  tools    nearest_hit on the card against the CPU (+z rays from a 64x64
+           grid and from the vertices of the 23,762-face "large" mesh):
+           fid equal, t, u, v within f32; average_z_distance
+  noise    the SPAD model at full width (the flagship GT, 64x64 x 1,200
+           bins, 20,000 photons a point, the runner's calibration,
+           pileup=False): seconds, peak memory, chunk 16 against 256
+           exactly, the card against the CPU on 32 rows by distribution;
+           then run_experiment("noise", max_iters=4) at the scene's own
+           settings ("noise_loop", launches held as in loop) and the final
+           mesh's average_z_distance to the GT mesh
+  real     the stand-in capture at 64x64 and B = 2,048: K1 at refine 10
+           (20,480 fine bins) and K2 on one 64-source chunk of its scan
+           (the flagship mesh) against their plain versions;
+           run_experiment("s", max_iters=2) at full width ("real_loop")
+  same_key tests/data/parity_short.json's case (JAX's run_experiment,
+           x64 off) on the card: the first iteration's faces and l2 equal
+           JAX's within the CPU test's tolerance; each iteration's
+           deviation printed
 
 Each K1 and K3 case prints the wrapper's time as a render calls it (the
 face hierarchy given), the kernel's (K1: occlusion and reduce apart), the
@@ -101,6 +122,7 @@ share and the top device ops.
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -148,6 +170,13 @@ ALPHA0 = 0.5
 ALPHA_STEPS = 5
 SHAPE_STEPS = 3
 CARD = ""
+# the noise scene's and the real scene's loop iterations, the
+# same-key case's tolerance on the first l2 (tests/test_torch_parity.py)
+NOISE_ITERS = 4
+REAL_ITERS = 2
+REAL_SCAN = 64
+SAME_KEY_L2_RTOL = 3e-4
+ROOT = os.path.dirname(os.path.abspath(__file__))
 SLEEP_CYCLES = 40_000_000   # device_ms's head start, ~20 ms at 1.98 GHz
 SPEED_OF_LIGHT = 299_792_458.0   # m/s: a jitter of t seconds is c*t of path
 
@@ -1369,20 +1398,23 @@ def gt_chunks(faces, samples, sources, shards):
 
 
 def phase_loop(dev, workdir, rec, scene=SCENE, iters=LOOP_ITERS,
-               name="loop"):
-    """run_experiment(scene, max_iters=iters) at the scene's own width;
-    the launches held to the chunks the renders ran (K2 and its epilogue
-    once a step chunk for a Lambertian scene, none for GGX)."""
+               name="loop", sizes=None, min_remeshes=1):
+    """run_experiment(scene, max_iters=iters) at the scene's own width
+    (``sizes`` None) or at ``sizes``; the launches held to the chunks the
+    renders ran: the GT's (a real scene's albedo fit render instead), the
+    steps' (K2 and its epilogue once a step chunk for a Lambertian scene,
+    none for GGX), the remeshes' cull (K3)."""
     from nlos_surface_optimization_torch.experiments import run as runner
     from nlos_surface_optimization_torch.experiments.scenes import SCENES
     from nlos_surface_optimization_torch.geometry import native
 
     spec = SCENES[scene]
+    sizes = LOOP_SIZES if sizes is None else sizes
     reset_launches()
     t0 = time.perf_counter()
     rec.log("start")
     state, hist = runner.run_experiment(scene, workdir, max_iters=iters,
-                                        log=rec.log, device=dev, **LOOP_SIZES)
+                                        log=rec.log, device=dev, **sizes)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = read_launches()
@@ -1399,27 +1431,35 @@ def phase_loop(dev, workdir, rec, scene=SCENE, iters=LOOP_ITERS,
         emit(f"{name}_remesh", **r)
     require(len(hist["l2"]) == iters and state.t == iters,
             f"the loop ran {len(hist['l2'])} of {iters} iterations")
-    require(bool(np.isfinite(hist["l2"]).all()
-                 and np.isfinite(hist["v2"]).all()), "l2 or v2 not finite")
-    require(len(remeshes) >= 1, "no remesh ran")
+    require(bool(np.isfinite(hist["l2"]).all()), "l2 not finite")
+    require(spec.kind == "real" or bool(np.isfinite(hist["v2"]).all()),
+            "v2 not finite")
+    require(len(remeshes) >= min_remeshes,
+            f"{len(remeshes)} remeshes ran, expected {min_remeshes} or more")
 
-    gt_v, gt_f = runner._load_gt_mesh(spec, None)
-    res = LOOP_SIZES["scan_resolution"] or spec.scan_resolution
-    gt = gt_chunks(gt_f.shape[0],
-                   LOOP_SIZES["gt_sample_num"]
-                   or min(spec.gt_sample_num, 200_000),
-                   res * res, 16 if res >= 256 else 8)
+    res = sizes["scan_resolution"] or spec.scan_resolution
+    if spec.kind == "real":
+        gt_f = None
+        gt = -(-res * res // min(256, res * res))   # the albedo fit render
+    else:
+        gt_v, gt_f = runner._load_gt_mesh(spec, None)
+        gt = gt_chunks(gt_f.shape[0],
+                       sizes["gt_sample_num"]
+                       or min(spec.gt_sample_num, 200_000),
+                       res * res, 16 if res >= 256 else 8)
     k2 = sum(r["chunks"] for r in steps) if spec.brdf == "lambertian" else 0
     want = {"occluded_splat": gt + sum(r["chunks"] for r in steps),
             "backward_face_sums": k2, "vertex_epilogue": k2,
             "segment_occluded": sum(r["chunks"] for r in remeshes)}
     require(launches == want, f"launch counts {launches}, expected {want}")
     init = next(m for _, m in rec.lines if m.startswith("init mesh"))
+    first = "loaded capture" if spec.kind == "real" else "creating GT"
     emit(name, scene=scene, scan=f"{res}x{res}", seconds=total,
-         gt_seconds=rec.at("LCT initialization") - rec.at("creating GT"),
+         gt_seconds=rec.at("LCT initialization") - rec.at(first)
+         if spec.kind != "real" else None,
          lct_seconds=rec.at("init mesh") - rec.at("LCT initialization"),
-         init=init, gt_faces=gt_f.shape[0], gt_chunks=gt,
-         iterations=len(steps), remeshes=len(remeshes),
+         init=init, gt_faces=None if gt_f is None else gt_f.shape[0],
+         gt_chunks=gt, iterations=len(steps), remeshes=len(remeshes),
          geomlib_native=native.available(), launches=launches,
          final_faces=int(state.f.shape[0]))
     return launches, state, hist
@@ -1470,6 +1510,327 @@ def phase_resume(dev, workdir, state, hist, rec):
                 f"resume: the {k} history differs (max rel {r:g})")
     require(same_f, "resume: faces differ")
     require(same_v, "resume: vertices differ")
+
+
+# ------------------------------------- init, tools, noise, real scenes
+
+
+def standin_capture(path, n=64, bins=2048, res=1.2e-3):
+    """A measured capture's layout (exp_s/transient.mat): 'transient'
+    [n*n, bins] and 'lighting' [n*n, 3]; a Gaussian pulse at each pixel's
+    path length to a plane at z = 0.55, and a direct-bounce spike in the
+    600 bins the loader zeroes (tests/test_torch_real.py's stand-in)."""
+    import scipy.io
+
+    xs = np.linspace(-0.35, 0.35, n)
+    gx, gy = np.meshgrid(xs, xs)
+    lighting = np.stack([gx.ravel(), gy.ravel(), np.zeros(n * n)], axis=1)
+    h = np.sqrt(gx.ravel() ** 2 + gy.ravel() ** 2 + 0.55 ** 2)
+    b = np.arange(bins)
+    t = np.exp(-((b[None, :] - 2.0 * h[:, None] / res) / 6.0) ** 2)
+    t[:, :600] += 5.0
+    scipy.io.savemat(path, {"transient": t, "lighting": lighting})
+
+
+def lct_case(dev, name, gt, width, res):
+    """lct_reconstruct and the init mesh on the card against the CPU:
+    the grids and the init mesh bit for bit -> record."""
+    from nlos_surface_optimization_torch.recon import lct
+
+    out, secs = {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        r = lct.lct_reconstruct(gt, width=width, bin_resolution_m=res,
+                                device=where)
+        v0, f0 = lct.init_mesh_from_lct(
+            r, threshold=float(r.albedo.max()) * 0.25)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        secs[str(where)] = time.perf_counter() - t0
+        out[str(where)] = (r, v0, f0)
+    (r, v0, f0), (rc, vc, fc) = out[str(dev)], out["cpu"]
+    require(fc.shape[0] > 0, f"LCT {name}: the init mesh has no face")
+    grids = {k: bool(torch.equal(getattr(r, k).cpu(), getattr(rc, k)))
+             for k in ("x", "y", "depth")}
+    same = f0.shape == fc.shape and bool(np.array_equal(f0, fc)
+                                         and np.array_equal(v0, vc))
+    rec = dict(case=name, scan=int(math.isqrt(gt.shape[0])),
+               bins=gt.shape[1], grids_equal=grids, init_mesh_equal=same,
+               faces=[f0.shape[0], fc.shape[0]],
+               depth_bins_differing=int((r.depth.cpu() != rc.depth).sum()),
+               albedo_max_rel_diff=float((r.albedo.cpu() - rc.albedo).abs()
+                                         .max() / rc.albedo.max()),
+               card_seconds=secs[str(dev)], cpu_seconds=secs["cpu"])
+    emit("lct", **rec)
+    require(all(grids.values()) and same,
+            f"LCT {name}: the card's init mesh differs from the CPU's")
+
+
+def phase_lct(dev, workdir):
+    """The LCT init on the card against the CPU at the loop's shapes: the
+    armadillo scene's 64x64 x 1,200-bin GT (rendered on the card at the
+    scene's 20,000 samples), and the stand-in capture at 64x64 x 2,048."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.experiments import run as runner
+    from nlos_surface_optimization_torch.experiments.scenes import SCENES
+    from nlos_surface_optimization_torch.io.mat import load_real_capture
+
+    spec = SCENES[SCENE]
+    v, f = runner._load_gt_mesh(spec, None)
+    lighting, lnormal = pt.make_confocal_scan(LOOP_SIZES["scan_resolution"]
+                                              or spec.scan_resolution,
+                                              lower=spec.scan_lower,
+                                              upper=spec.scan_upper)
+    cfg = pt.RenderConfig(num_samples=spec.sample_num,
+                          num_bins=spec.num_bins,
+                          distance_resolution=spec.distance_resolution)
+    gt, _ = pt.render_transient(pt.make_mesh(v, f, device=dev),
+                                torch.from_numpy(lighting).to(dev),
+                                torch.from_numpy(lnormal).to(dev), cfg,
+                                pt.key(0))
+    lct_case(dev, SCENE, gt.cpu().numpy(), runner._width(lighting),
+             spec.distance_resolution)
+    path = os.path.join(workdir, "standin.mat")
+    standin_capture(path, REAL_SCAN)
+    gt, lighting, _ = load_real_capture(path)
+    lct_case(dev, "s", gt, runner._width(lighting),
+             SCENES["s"].distance_resolution)
+
+
+def phase_tools(dev):
+    """nearest_hit on the card against the CPU: +z rays from a 64x64 grid
+    over the 'large' mesh (23,762 faces; rays past its border miss) and
+    from its 12,100 vertices (hits on shared vertices: equal t on several
+    faces, the lowest id wins), every ray on the card and every 3rd
+    vertex ray on the CPU; fid equal, t, u, v equal within f32; then
+    average_z_distance of the flat plane to the mesh, card and CPU."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.geometry.intersect import (
+        nearest_hit,
+    )
+    from nlos_surface_optimization_torch.utils.metrics import (
+        average_z_distance,
+    )
+
+    v, f, plane = height_field(LARGE_N, 0.35, 0.6, 0.01, 0)
+    xs = np.linspace(-0.4, 0.4, SCAN)
+    gx, gy = np.meshgrid(xs, xs)
+    grid = np.stack([gx.ravel(), gy.ravel(), np.zeros(SCAN * SCAN)], 1)
+    verts = v.copy()
+    verts[:, 2] = 0.0
+    meshes = {str(w): pt.make_mesh(v, f, device=w) for w in (dev, "cpu")}
+    for name, o, step in (("grid", grid, 1), ("vertices", verts, 3)):
+        o = torch.from_numpy(o.astype(np.float32))
+        d = torch.zeros_like(o)
+        d[:, 2] = 1.0
+        m = meshes[str(dev)]
+        card = (o.to(dev), d.to(dev), m.v, m.f, m.f_valid)
+        t0 = time.perf_counter()
+        got = [x.cpu()[::step] for x in nearest_hit(*card)]
+        card_s = time.perf_counter() - t0
+        m = meshes["cpu"]
+        t0 = time.perf_counter()
+        want = nearest_hit(o[::step], d[::step], m.v, m.f, m.f_valid)
+        cpu_s = time.perf_counter() - t0
+        hits = int((want[0] >= 0).sum())
+        require(torch.equal(got[0], want[0]), f"tools {name}: fid differs "
+                f"({int((got[0] != want[0]).sum())} rays)")
+        require(hits > 0, f"tools {name}: no ray hits")
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        emit("tools", case=name, rays=o.shape[0], rays_on_cpu=len(want[0]),
+             faces=f.shape[0], hits_on_cpu=hits,
+             max_abs_err=float(max((a - b).abs().max()
+                                   for a, b in zip(got[1:], want[1:]))),
+             card_seconds=card_s, cpu_seconds=cpu_s,
+             card_ms=timed_ms(lambda: nearest_hit(*card), 3))
+    z = {w: float(average_z_distance(torch.from_numpy(plane).to(m.v.device),
+                                     m))
+         for w, m in meshes.items()}
+    require(abs(z[str(dev)] - z["cpu"]) <= 1e-6 * z["cpu"],
+            f"average_z_distance differs: {z}")
+    emit("tools", case="average_z_distance", value=z)
+
+
+def same_distribution(got, want, ideal, M):
+    """Rescaled SPAD rows (torch, CPU) turned back into counts: per-row
+    totals within 5 sd of their Poisson spread, and a two-sample
+    chi-square of at most 1.3 a bin for each row and for the rows' sum
+    (tests/test_torch_noise.py's checks; a shift of a row's peak by a few
+    bins puts its chi-square far above 1.3) -> stats, with each row's
+    peak (after a 9-bin box) beside the other's."""
+    scale = M / ideal.sum(dim=1, keepdim=True)
+    a, b = (got * scale).double(), (want * scale).double()
+    ta, tb = a.sum(1), b.sum(1)
+    z = float(((ta - tb).abs() / (ta + tb).sqrt()).max())
+
+    def chi2(x, y):
+        n = x + y > 0
+        return float(((x - y)[n] ** 2 / (x + y)[n]).mean())
+
+    rows = [chi2(x, y) for x, y in zip(a, b)]
+    box = torch.ones(1, 1, 9, dtype=torch.float64) / 9
+    pa, pb = (torch.nn.functional.conv1d(x[:, None], box, padding=4)
+              .argmax(-1).ravel() for x in (a, b))
+    off = (pa - pb).abs()
+    stats = dict(rows=a.shape[0], total_z_max=z,
+                 chi2_per_bin_rows_max=max(rows),
+                 chi2_per_bin_sum=chi2(a.sum(0), b.sum(0)),
+                 peak_offset_median=float(off.double().median()),
+                 peak_offset_max=int(off.max()))
+    require(z < 5 and max(rows) < 1.3 and stats["chi2_per_bin_sum"] < 1.3,
+            f"noise: the card's counts are not the CPU's in distribution "
+            f"{stats}")
+    return stats
+
+
+def phase_noise(dev, v, f, tmp):
+    """The SPAD model at full width: the flagship GT (64x64 scan, 1,200
+    bins), 20,000 photons a point, the runner's jitter calibration,
+    pileup=False; its seconds and peak memory; chunk invariance on the
+    card (source_chunk 16 against 256); the card against the CPU on 32
+    rows by distribution.  Then run_experiment("noise") at the scene's
+    own settings for NOISE_ITERS iterations, and the final mesh's
+    average_z_distance to the GT mesh."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.experiments import run as runner
+    from nlos_surface_optimization_torch.experiments.scenes import SCENES
+    from nlos_surface_optimization_torch.geometry import sampling
+    from nlos_surface_optimization_torch.noise import (
+        SpadParams,
+        spad_model,
+        spad_noisy_transients,
+    )
+    from nlos_surface_optimization_torch.utils.metrics import (
+        average_z_distance,
+    )
+
+    spec = SCENES["noise"]
+    cfg = pt.RenderConfig(**FLAGSHIP)
+    lighting, lnormal = (torch.from_numpy(x).to(dev)
+                         for x in pt.make_confocal_scan(SCAN))
+    gt, _ = pt.render_transient(pt.make_mesh(v, f, device=dev), lighting,
+                                lnormal, cfg, pt.key(0))
+    jt, jc = runner._find_jitter_calibration(tmp)
+    params = SpadParams(num_photons=spec.spad_photons,
+                        mu_noise=spec.spad_mu_noise, pileup=False)
+    key = sampling.fold_in(pt.key(0), torch.tensor([777]))[0]
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    noisy = spad_noisy_transients(key, gt, jt, jc, params, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    t0 = time.perf_counter()
+    wide = spad_noisy_transients(key, gt, jt, jc, params, source_chunk=256,
+                                 device=dev)
+    torch.cuda.synchronize()
+    wide_secs = time.perf_counter() - t0
+    require(torch.equal(noisy, wide), "noise: source_chunk 16 and 256 "
+            f"differ in {int((noisy != wide).sum())} bins")
+    require(bool(torch.isfinite(noisy).all()), "noise: not finite")
+    L, M = gt.shape[0], params.num_photons
+    rows = list(range(0, L, L // 32))
+    keys = sampling.split(key, L)
+    ideal = gt.cpu()[rows]
+    t0 = time.perf_counter()
+    cpu = torch.stack([spad_model(keys[i], ideal[j], jt, jc, params,
+                                  device="cpu")
+                       for j, i in enumerate(rows)])
+    cpu_secs = time.perf_counter() - t0
+    stats = same_distribution(noisy.cpu()[rows], cpu / M * ideal.sum(
+        1, keepdim=True), ideal, M)
+    require(read_launches() == {k: 0 for k in kernel_wrappers()},
+            "the SPAD model launched a kernel")
+    emit("noise", scan=f"{SCAN}x{SCAN}", bins=gt.shape[1], photons=M,
+         photon_draws=L * M, seconds=secs, seconds_chunk256=wide_secs,
+         peak_memory_bytes=peak, cpu_seconds_32_rows=cpu_secs, **stats)
+
+    rec = Recorder()
+    launches, state, hist = phase_loop(dev, os.path.join(tmp, "noise"), rec,
+                                       "noise", NOISE_ITERS, "noise_loop",
+                                       min_remeshes=0)
+    gt_v, gt_f = runner._load_gt_mesh(spec, None)
+    z = float(average_z_distance(torch.from_numpy(state.v).to(dev),
+                                 pt.make_mesh(gt_v, gt_f, device=dev)))
+    require(np.isfinite(z), "noise: average_z_distance not finite")
+    emit("noise_loop", average_z_distance=z, l2=list(hist["l2"]),
+         spad_seconds=rec.at("LCT initialization")
+         - rec.at("injecting SPAD noise"))
+    return launches
+
+
+def phase_real(dev, v, f, tmp):
+    """The real-scene path at a capture's width: the stand-in capture at
+    64x64 and B = 2,048 (20,480 fine bins at refine 10).  K1 at refine 10
+    and K2 (its fine bins at refine 10) on one 64-source chunk of the
+    capture's scan, on the flagship mesh v, f (the stand-in's own LCT
+    init mesh is a few faces), against their plain versions; then
+    run_experiment("s", max_iters=REAL_ITERS) at full width."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.experiments.scenes import SCENES
+    from nlos_surface_optimization_torch.io.mat import load_real_capture
+    from nlos_surface_optimization_torch.render import core
+
+    workdir = os.path.join(tmp, "s")
+    os.makedirs(workdir)
+    path = os.path.join(workdir, "transient.mat")
+    standin_capture(path, REAL_SCAN)
+    spec = SCENES["s"]
+    gt, lighting, _ = load_real_capture(path)
+    cfg = pt.RenderConfig(num_samples=spec.sample_num, num_bins=gt.shape[1],
+                          distance_resolution=spec.distance_resolution,
+                          source_chunk=FLAGSHIP["source_chunk"])
+    Lc = cfg.source_chunk
+    lc = torch.from_numpy(lighting[:Lc]).to(dev)
+    nc = torch.zeros(Lc, 3, device=dev)
+    nc[:, 2] = 1.0
+    mesh = pt.make_mesh(v, f, device=dev)
+    spt = cfg.samples_per_face(f.shape[0])
+    _, args, kwargs = core.splat_inputs(mesh, lc, nc, pt.key(0), cfg, spt,
+                                        cfg.bin_refine_resolution)
+    require(args[-1] == 10 * gt.shape[1], f"K1 real: {args[-1]} fine bins")
+    k1_case("real", args, kwargs, reps=5, plain_reps=1)
+    rays, _ = core.trace_forward_fused(mesh, lc, nc, pt.key(0), cfg, spt,
+                                       cfg.forward_refine)
+    diff = torch.from_numpy((np.random.RandomState(3).randn(
+        Lc, cfg.num_bins) * 1e-3).astype(np.float32)).to(dev)
+    k2_case("real", rays, mesh, nc, diff, cfg, spt, reps=10)
+    return phase_loop(dev, workdir, Recorder(), "s", REAL_ITERS, "real_loop",
+                      min_remeshes=0)[0]
+
+
+def phase_same_key(dev, tmp):
+    """tests/data/parity_short.json's case on the card: the port's
+    run_experiment with the JAX fixture's key and arguments.  The first
+    iteration's face count and l2 must be JAX's (l2 within
+    SAME_KEY_L2_RTOL); every iteration's deviation is printed."""
+    from nlos_surface_optimization_torch.io.progress import collect_progress
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "parity_short.json")) as fh:
+        fix = json.load(fh)
+    a = fix["args"]
+    sizes = {k: a[k] for k in ("scan_resolution", "sample_num",
+                               "gt_sample_num")}
+    workdir = os.path.join(tmp, "same_key")
+    launches, _, hist = phase_loop(dev, workdir, Recorder(), a["scene"],
+                                   a["max_iters"], "same_key", sizes,
+                                   min_remeshes=0)
+    faces = collect_progress(os.path.join(workdir, "progress"))["num_faces"]
+    dev_l2 = [abs(x / y - 1) for x, y in zip(hist["l2"], fix["l2"])]
+    dev_v2 = [abs(x / y - 1) for x, y in zip(hist["v2"], fix["v2"])]
+    emit("same_key", faces=[int(x) for x in faces], jax_faces=fix["faces"],
+         l2_rel_dev=dev_l2, v2_rel_dev=dev_v2,
+         faces_equal=bool(np.array_equal(faces, fix["faces"])))
+    require(faces[0] == fix["faces"][0] and dev_l2[0] <= SAME_KEY_L2_RTOL,
+            f"same_key: iteration 0 has {faces[0]} faces and l2 "
+            f"{hist['l2'][0]} against JAX's {fix['faces'][0]} and "
+            f"{fix['l2'][0]}")
+    return launches
 
 
 def profile_step(descent, out_dir, name):
@@ -1585,6 +1946,11 @@ def run(dev, steps, profile_dir=None):
         paths["ggx_loop"] = phase_loop(dev, os.path.join(tmp, "ggx"),
                                        Recorder(), "ggx", GGX_LOOP_ITERS,
                                        "ggx_loop")[0]
+        phase_lct(dev, tmp)
+        phase_tools(dev)
+        paths["noise"] = phase_noise(dev, v, f, tmp)
+        paths["real"] = phase_real(dev, v, f, tmp)
+        paths["same_key"] = phase_same_key(dev, tmp)
 
     def by_path(name):
         return {p: n[name] for p, n in paths.items()}

@@ -11,8 +11,8 @@
 runs on CUDA (``--device cpu`` for the plain PyTorch versions of the
 kernels).  The ``ggx`` scene renders its GT at the scene's roughness
 (0.2) and optimizes the shape with the loop's default roughness 0.1, as
-the JAX package does.  Scenes with SPAD noise raise NotImplementedError
-until that module is ported.
+the JAX package does; the ``noise`` scene pushes its GT through the SPAD
+photon model (noise/spad.py) before the LCT init.
 """
 
 from __future__ import annotations
@@ -23,24 +23,20 @@ from typing import Optional
 
 import numpy as np
 import scipy.io
+import torch
 
 from ..config import RenderConfig, make_confocal_scan
 from ..geometry.mesh import make_mesh
+from ..geometry.sampling import fold_in
 from ..geometry.sampling import key as make_key
 from ..io.mat import load_real_capture, load_transient_shards
 from ..io.obj import read_obj
+from ..noise.spad import SpadParams, spad_noisy_transients
 from ..optim.outer_loop import InverseRenderingLoop, LoopConfig
 from ..recon.lct import init_mesh_from_lct, lct_reconstruct
 from ..render.api import render_transient
 from .create_gt import create_gt
 from .scenes import SCENES, SceneSpec, mesh_dir
-
-
-def _check_ported(spec: SceneSpec) -> None:
-    if spec.spad_noise:
-        raise NotImplementedError(
-            f"scene {spec.name!r} needs the SPAD noise model (noise/spad.py), "
-            "not ported yet (ROADMAP queue 1, item 11)")
 
 
 def _load_gt_mesh(spec: SceneSpec, meshes: Optional[str]):
@@ -107,6 +103,26 @@ def _find_jitter_calibration(workdir: str):
     counts = core + tail
     counts *= 3.57e6 / counts.sum()
     return t, counts
+
+
+def _apply_spad_noise(gt: np.ndarray, spec: SceneSpec, workdir: str, key,
+                      num_photons: Optional[int], log,
+                      device="cuda") -> np.ndarray:
+    """Ideal GT transients through the SPAD photon model, Scaled variant,
+    rescaled back to the ideal energy (addNoiseExample.m:20-24:
+    spadModelScaled(...)/M*sum(transient)), on ``device``."""
+    jitters_s, counts = _find_jitter_calibration(workdir)
+    params = SpadParams(
+        num_photons=num_photons or spec.spad_photons,
+        mu_noise=spec.spad_mu_noise,
+        pileup=False,  # spadModelScaled semantics (spadModelScaled.m:44-45)
+    )
+    log(f"injecting SPAD noise: M={params.num_photons} "
+        f"muNoise={params.mu_noise}")
+    noisy = spad_noisy_transients(
+        fold_in(key, torch.tensor([777]))[0], gt, jitters_s, counts, params,
+        rescale=True, device=device)
+    return noisy.cpu().numpy().astype(np.float64)
 
 
 def _width(lighting) -> float:
@@ -199,11 +215,11 @@ def run_experiment(scene: str, workdir: str,
                    gt_sample_num: Optional[int] = None,
                    meshes: Optional[str] = None,
                    transient_path: Optional[str] = None,
+                   spad_photons: Optional[int] = None,
                    resume: bool = False,
                    key=None, log=print, device="cuda"):
     """Run one scene end to end on ``device``; returns (state, history)."""
     spec = SCENES[scene]
-    _check_ported(spec)
     key = make_key(0) if key is None else key
     res = scan_resolution or spec.scan_resolution
     os.makedirs(workdir, exist_ok=True)
@@ -234,6 +250,10 @@ def run_experiment(scene: str, workdir: str,
             sample_num=gt_sample_num or min(spec.gt_sample_num, 200_000),
             key=key, device=device)
         gt = load_transient_shards(files)
+
+    if spec.spad_noise:
+        gt = _apply_spad_noise(gt, spec, workdir, key, spad_photons, log,
+                               device)
 
     cfg = RenderConfig(num_samples=sample_num or spec.sample_num,
                        num_bins=spec.num_bins,

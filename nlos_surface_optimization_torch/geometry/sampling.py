@@ -10,10 +10,20 @@ arithmetic runs in int64 tensors masked to 32 bits, so it is exact on
 every device.  The draw for a given (global source index, face, slot)
 does not depend on chunking.
 
-A key is an int64 tensor of shape [2] holding two uint32 words.
+A key is an int64 tensor of shape [2] holding two uint32 words.  ``split``
+and ``uniform`` are jax 0.9's ``jax.random.split`` and float32
+``jax.random.uniform`` bit for bit under the same threefry, for a key or
+a batch of keys [..., 2].  ``choice`` and ``poisson`` make the draws of
+the SPAD model (noise/spad.py): ``choice`` searches jax's r = cdf[-1] *
+(1 - u) with the same u in exact running sums, ``poisson`` is torch's
+sampler under a generator seeded from the key's words, so both are
+functions of the key alone (on a device) and agree with JAX's in
+distribution.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -63,6 +73,69 @@ def fold_in(k: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def _counter_bits(keys: torch.Tensor, n: int):
+    """(bits1, bits2) [..., n]: threefry of each key [..., 2] over the
+    counters 0..n-1 split into (high, low) words, jax's partitionable
+    ``iota_2x32_shape``."""
+    idx = torch.arange(n, device=keys.device, dtype=torch.int64)
+    return threefry2x32(keys[..., 0:1], keys[..., 1:2], idx >> 32,
+                        idx & _MASK)
+
+
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(k, num)`` -> keys [..., num, 2]."""
+    b1, b2 = _counter_bits(k, num)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """float32 in [0, 1) from uint32 values: the top 23 bits as the
+    mantissa of a number in [1, 2), minus 1."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(k: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32)`` -> [..., *shape] for keys
+    [..., 2]."""
+    shape = tuple(shape)
+    b1, b2 = _counter_bits(k, math.prod(shape))
+    return _unit_floats(b1 ^ b2).reshape(*k.shape[:-1], *shape)
+
+
+def choice(k: torch.Tensor, n: int, shape, p: torch.Tensor) -> torch.Tensor:
+    """Indices into range(n) drawn with weights p >= 0 ([n], or a row
+    [..., n] a key; any scale) for keys [..., 2] -> int64 [..., *shape]:
+    as jax.random.choice with replacement, the first index whose running
+    sum reaches r = cdf[-1] * (1 - u), with jax's u.  The running sums are
+    exact: each weight in 40-bit fixed point of its row's largest, summed
+    in int64.  A float cumsum (or a sum to normalize) adds in an order
+    that depends on the device and on how many rows a call holds, and a
+    draw near a boundary then moves with the chunk of rows."""
+    if p.shape[-1] != n:
+        raise ValueError(f"p has {p.shape[-1]} entries, expected {n}")
+    shape = tuple(shape)
+    u = uniform(k, (math.prod(shape),))
+    top = p.amax(dim=-1, keepdim=True).double()
+    q = torch.floor(p.double() / torch.where(top > 0, top, 1.0) * 2.0 ** 40)
+    cdf = torch.cumsum(q.long(), dim=-1).double()        # exact below 2^53
+    ind = torch.searchsorted(cdf, cdf[..., -1:] * (1.0 - u.double()))
+    return ind.reshape(*u.shape[:-1], *shape)
+
+
+def poisson(k: torch.Tensor, lam: torch.Tensor, shape) -> torch.Tensor:
+    """Poisson counts [..., *shape] (float32) of mean lam for keys
+    [..., 2]: for each key, torch.poisson on lam's device under a
+    generator seeded with its words, (k0 << 32) | k1."""
+    lam = torch.as_tensor(lam, dtype=torch.float32)
+    rates = lam.expand(tuple(shape)).contiguous()
+    gen = torch.Generator(device=lam.device)
+    draws = []
+    for k0, k1 in k.reshape(-1, 2).tolist():
+        gen.manual_seed((k0 << 32) | k1)
+        draws.append(torch.poisson(rates, generator=gen))
+    return torch.stack(draws).reshape(*k.shape[:-1], *rates.shape)
+
+
 def uniforms_for(k: torch.Tensor, num_sources: int, num_faces: int, spt: int,
                  source_offset: int = 0, device=None):
     """Per-(source, face, sample) uniforms (S, T), each [L, F, spt] f32."""
@@ -70,13 +143,7 @@ def uniforms_for(k: torch.Tensor, num_sources: int, num_faces: int, spt: int,
     k = k.to(device)
     src = torch.arange(num_sources, device=device, dtype=torch.int64)
     keys = fold_in(k, src + int(source_offset))               # [L, 2]
-    n = num_faces * spt * 2
-    idx = torch.arange(n, device=device, dtype=torch.int64)
-    b0, b1 = threefry2x32(keys[:, 0:1], keys[:, 1:2],
-                          (idx >> 32)[None, :], (idx & _MASK)[None, :])
-    bits = (((b0 ^ b1) >> 9) | 0x3F800000).to(torch.int32)
-    u = bits.view(torch.float32) - 1.0
-    u = u.reshape(num_sources, num_faces, spt, 2)
+    u = uniform(keys, (num_faces, spt, 2))
     return u[..., 0], u[..., 1]
 
 

@@ -39,20 +39,21 @@ def load_real_capture(path: str, zero_bins: int = 600,
     """
     m = scipy.io.loadmat(path)
     # np.array (not asarray): forces a copy so the in-place bin zeroing
-    # below can never alias loadmat's buffer.
+    # below can never alias loadmat's buffer; row-major, as the kernels'
+    # wrappers take their inputs (loadmat's arrays are column-major)
     if "transient" in m:
-        t = np.array(m["transient"], dtype=np.float64)
+        t = np.array(m["transient"], dtype=np.float64, order="C")
         L = t.shape[0]
         n = int(round(L ** 0.5))
         assert n * n == L, f"scan must be square, got L={L}"
     else:
-        rect = np.array(m["rect_data"], dtype=np.float64)
+        rect = np.array(m["rect_data"], dtype=np.float64, order="C")
         n = rect.shape[0]
         t = rect.reshape(n * n, rect.shape[-1])
     t[:, :zero_bins] = 0.0
     lighting = None
     if "lighting" in m:
-        lighting = np.asarray(m["lighting"], dtype=np.float32)
+        lighting = np.ascontiguousarray(m["lighting"], dtype=np.float32)
     if downsample > 1:
         k = downsample
         idx = (np.arange(0, n, k)[:, None] * n

@@ -13,6 +13,11 @@ cnlos.m, O'Toole et al., Nature 2018):
 The FFTs are torch.fft (the JAX package leaves them to XLA, outside any
 kernel); the two resampling products are float32 matrix products with
 TF32 off.  The reconstruction runs on the device of ``device``.
+
+The depth and lateral grids are float32, each point the one jax 0.9's
+``jnp.linspace`` gives with x64 off, as the JAX package's runner runs it
+(``linspace_f32``): the depth of a voxel and the init mesh's vertices
+then equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -50,10 +55,48 @@ def resampling_operator(M: int) -> Tuple[np.ndarray, np.ndarray]:
     return mtx, mtx.T
 
 
+def _fma_f32(a, b, c) -> np.ndarray:
+    """f32(a*b + c) with one rounding, as a fused multiply-add gives it, for
+    float32 a, b, c: the product is exact in float64, the sum is rounded to
+    odd there (TwoSum, then one ulp toward the lost part), and rounding
+    that to float32 is then the correctly rounded result."""
+    a, b, c = (np.atleast_1d(np.asarray(x, np.float32)).astype(np.float64)
+               for x in (a, b, c))
+    p = a * b
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    nudge = (err != 0) & ((s.view(np.int64) & 1) == 0)
+    s = np.where(nudge, np.nextafter(s, np.copysign(np.inf, err)), s)
+    return s.astype(np.float32)
+
+
+def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+    """``jnp.linspace(start, stop, num)`` with x64 off, bit for bit, as
+    XLA's CPU code computes it in jax 0.9: ``start*(1 - i*r) + i*(stop*r)``
+    in float32 with r = f32(1/(num-1)) (the division is rewritten as that
+    product), the constants 1 - i*r folded, the sum fused as
+    fma(i, stop*r, start*(1 - i*r)); up to 34 points the loop is unrolled
+    and point 1 (where i*(stop*r) is stop*r) fuses the other product,
+    fma(start, 1 - r, stop*r).  The last point is stop."""
+    start, stop = np.float32(start), np.float32(stop)
+    if num < 2:
+        return np.full(max(num, 0), start, np.float32)
+    div = num - 1
+    r = np.float32(1) / np.float32(div)
+    i = np.arange(div, dtype=np.float32)
+    c = np.float32(1) - i * r
+    s = stop * r
+    out = _fma_f32(i, s, start * c)
+    if 1 < div <= 33:
+        out[1] = _fma_f32(start, c[1], s)[0]
+    return np.append(out, stop)
+
+
 class LCTResult(NamedTuple):
-    x: torch.Tensor        # [N,N] lateral grid (f64)
-    y: torch.Tensor        # [N,N] (f64)
-    depth: torch.Tensor    # [N,N] argmax depth, meters from wall (f64)
+    x: torch.Tensor        # [N,N] lateral grid (f32)
+    y: torch.Tensor        # [N,N] (f32)
+    depth: torch.Tensor    # [N,N] argmax depth, meters from wall (f32)
     albedo: torch.Tensor   # [N,N] max projection (f32)
     vol: torch.Tensor      # [Mc,N,N] cropped reconstruction volume (f32)
 
@@ -76,9 +119,11 @@ def _lct_core(data, psf, mtx, mtxi, snr: float, N: int, M: int,
     else:
         invpsf = torch.conj(fpsf) / (torch.abs(fpsf) ** 2 + 1.0 / snr)
 
-    grid_z = torch.linspace(0.0, 1.0, M, dtype=data.dtype,
-                            device=data.device)[:, None, None]
-    data = data * (grid_z ** (4 if isdiffuse else 2))
+    grid_z = torch.from_numpy(linspace_f32(0.0, 1.0, M)).to(
+        data.device)[:, None, None]
+    # z^4 as (z*z)*(z*z), z^2 as z*z: XLA's integer power
+    z2 = grid_z * grid_z
+    data = data * (z2 * z2 if isdiffuse else z2)
 
     tdata = torch.zeros((2 * M, 2 * N, 2 * N), dtype=data.dtype,
                         device=data.device)
@@ -117,11 +162,8 @@ def lct_reconstruct(transient, width: float,
     vol = _lct_core(data, psf, dev(mtx), dev(mtxi), snr, N, M, isdiffuse,
                     isbackprop)
 
-    # the depth and lateral grids in float64, as numpy's would be
-    tic_z = torch.linspace(0.0, rng / 2.0, M, dtype=torch.float64,
-                           device=device)
-    tic_xy = torch.linspace(-width, width, N, dtype=torch.float64,
-                            device=device)
+    tic_z = torch.from_numpy(linspace_f32(0.0, rng / 2.0, M)).to(device)
+    tic_xy = torch.from_numpy(linspace_f32(-width, width, N)).to(device)
 
     # crop + flip
     ind = int(round(M * 2.0 * width / (rng / 2.0)))

@@ -1,3 +1,8 @@
-"""Evaluation metrics."""
+"""Evaluation metrics and phase timing."""
 
-from .metrics import compute_v2, point_mesh_distance  # noqa: F401
+from .metrics import (  # noqa: F401
+    average_z_distance,
+    compute_v2,
+    point_mesh_distance,
+)
+from .timers import PhaseTimer, trace  # noqa: F401

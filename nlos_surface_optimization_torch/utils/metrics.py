@@ -5,12 +5,16 @@ compute_v2: mean UNSIGNED distance from the current vertices to the GT mesh
 the JAX package computes it: an exact point-triangle distance (Ericson,
 Real-Time Collision Detection §5.1.5) min-reduced over faces, dense over
 [points, faces] in batches of points so the working set stays bounded.
+
+average_z_distance: the reference's MATLAB evaluation metric, the mean
+|z - z_gt| along +z rays (``geometry.intersect.nearest_hit``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..geometry.intersect import nearest_hit
 from ..geometry.mesh import Mesh
 
 POINT_BATCH = 1024
@@ -89,3 +93,18 @@ def compute_v2(v, gt_mesh: Mesh) -> torch.Tensor:
     """Mean unsigned distance of vertices to the GT mesh."""
     return point_mesh_distance(v, gt_mesh.v, gt_mesh.f,
                                gt_mesh.f_valid).mean()
+
+
+def average_z_distance(v, gt_mesh: Mesh) -> torch.Tensor:
+    """Mean |z - z_gt| where z_gt is the GT surface depth hit by a +z ray
+    from (x, y, 0) (average_point_distance_to_mesh.m); vertices whose ray
+    misses the GT mesh are left out."""
+    v = torch.as_tensor(v).to(gt_mesh.v)
+    o = v.clone()
+    o[:, 2] = 0.0
+    d = torch.zeros_like(v)
+    d[:, 2] = 1.0
+    fid, _, _, t = nearest_hit(o, d, gt_mesh.v, gt_mesh.f, gt_mesh.f_valid)
+    hit = fid >= 0
+    err = torch.abs(v[:, 2] - t)
+    return torch.where(hit, err, 0.0).sum() / torch.clamp(hit.sum(), min=1)

@@ -466,3 +466,62 @@ def test_jitter_convolve_ignores_global_tf32(cuda):
     want = jitter_convolve(hist, w, 21)
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-6 * float(want.abs().max()))
+
+
+def test_nearest_hit_card_matches_cpu(cuda):
+    """nearest_hit on the card against the CPU: +z rays from a grid over
+    the bumpy field (some miss) and from its vertices (equal t on the
+    faces around a vertex: the lowest id wins on both), the faces in two
+    tiles of 7 and one of 512."""
+    from nlos_surface_optimization_torch.geometry.intersect import (
+        nearest_hit,
+    )
+
+    v, f = _bumpy(9)
+    xs = np.linspace(-0.3, 0.3, 20)
+    gx, gy = np.meshgrid(xs, xs)
+    o = np.concatenate([np.stack([gx.ravel(), gy.ravel(), 0 * gx.ravel()],
+                                 1), v * np.float32([1, 1, 0])])
+    o = torch.from_numpy(o.astype(np.float32))
+    d = torch.zeros_like(o)
+    d[:, 2] = 1.0
+    for tile in (7, 512):
+        out = {}
+        for where in (cuda, "cpu"):
+            m = pt.make_mesh(v, f, device=where)
+            out[str(where)] = [x.cpu() for x in nearest_hit(
+                o.to(where), d.to(where), m.v, m.f, m.f_valid, tile=tile)]
+        got, want = out[str(cuda)], out["cpu"]
+        assert torch.equal(got[0], want[0])
+        assert (want[0] >= 0).sum() > v.shape[0] and (want[0] < 0).any()
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_spad_chunk_invariance_on_card(cuda):
+    """The SPAD model on the card: one key a point, so source_chunk 5 and
+    64 give the same counts, pileup off and on; a point alone from its own
+    key gives its row."""
+    from nlos_surface_optimization_torch.geometry import sampling
+    from nlos_surface_optimization_torch.noise import (
+        SpadParams,
+        spad_model,
+        spad_noisy_transients,
+    )
+
+    rng = np.random.RandomState(2)
+    ideal = rng.rand(40, 600) * (np.arange(600) > 200)
+    jt = np.linspace(-84e-12, 650e-12, 901)
+    jc = np.exp(-0.5 * (jt / 25e-12) ** 2)
+    key = sampling.key(7)
+    for pileup in (False, True):
+        params = SpadParams(num_photons=500, pileup=pileup, mu_noise=100.0)
+        a, b = (spad_noisy_transients(key, ideal, jt, jc, params,
+                                      source_chunk=c, device=cuda)
+                for c in (5, 64))
+        assert a.is_cuda and torch.equal(a, b) and float(a.sum()) > 0
+        raw = spad_noisy_transients(key, ideal, jt, jc, params,
+                                    rescale=False, device=cuda)
+        one = spad_model(sampling.split(key, 40)[11], ideal[11], jt, jc,
+                         params, device=cuda)
+        assert torch.equal(one, raw[11])

@@ -14,14 +14,15 @@ from nlos_surface_optimization_tpu.experiments.create_gt import (
     create_gt as jax_create_gt,
 )
 from nlos_surface_optimization_tpu.experiments import run as jrun
-from nlos_surface_optimization_tpu.geometry.mesh import make_mesh as jmake_mesh
 from nlos_surface_optimization_tpu.recon import lct as jlct
-from nlos_surface_optimization_tpu.render import render_transient as jrender
 
 import nlos_surface_optimization_torch as pt
 from nlos_surface_optimization_torch.experiments import SCENES, create_gt
 from nlos_surface_optimization_torch.experiments import run as prun
-from nlos_surface_optimization_torch.io.mat import load_checkpoint
+from nlos_surface_optimization_torch.io.mat import (
+    load_checkpoint,
+    load_real_capture,
+)
 from nlos_surface_optimization_torch.io.obj import write_obj
 from nlos_surface_optimization_torch.recon import lct
 
@@ -44,42 +45,116 @@ def _grid_mesh(n, zfn, extent=0.2):
     return v, np.array(faces, np.int32)
 
 
-def test_lct_matches_jax(bumpy_mesh):
-    """lct_reconstruct on a rendered 8x8 transient (the scene's bins), and
-    the init mesh it gives."""
-    v, f = bumpy_mesh
-    cfg = nst.RenderConfig(num_samples=4000, num_bins=SPEC.num_bins,
-                           distance_resolution=SPEC.distance_resolution)
-    lighting, lnormal = nst.make_confocal_scan(8)
-    t, _ = jrender(jmake_mesh(v, f), lighting, lnormal, cfg,
-                   jax.random.key(5))
-    t = np.array(t, np.float32)
+def _splat_gt(v, f, res, spec):
+    """A cheap stand-in for a scene's GT transients at its bins: each face
+    centre's 1/d^4 cosine-weighted return, binned at path length 2d and
+    blurred by a 2-bin Gaussian (no occlusion, no sampling)."""
+    lighting, _ = nst.make_confocal_scan(res, lower=spec.scan_lower,
+                                         upper=spec.scan_upper)
+    tri = v[f].astype(np.float64)
+    c = tri.mean(1)
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    area = np.linalg.norm(n, axis=1) / 2
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    w = c[None] - lighting[:, None].astype(np.float64)
+    d = np.linalg.norm(w, axis=2)
+    val = (area * np.clip(w[..., 2] / d, 0, None)
+           * np.abs((n[None] * w).sum(-1)) / d / d ** 4)
+    B = spec.num_bins
+    b = np.minimum((2 * d / spec.distance_resolution).astype(np.int64), B - 1)
+    rows = np.arange(res * res)[:, None] * B
+    t = np.bincount((rows + b).ravel(), val.ravel(), res * res * B)
+    k = np.exp(-0.5 * (np.arange(-6, 7) / 2.0) ** 2)
+    t = np.apply_along_axis(np.convolve, 1, t.reshape(-1, B), k / k.sum(),
+                            "same")
+    return t.astype(np.float32), lighting
+
+
+def _lct_input(case, tmp_path):
+    """(transient [L, B] f32, width, bin resolution) of a case: the 's'
+    stand-in capture downsampled to 8x8, or the armadillo scene's
+    synthetic GT mesh at 16, 32 or 64."""
+    if case == "s8":
+        from test_torch_real import _standin_capture
+
+        p = str(tmp_path / "transient.mat")
+        _standin_capture(p)
+        gt, lighting, _ = load_real_capture(p, downsample=8)
+        res = SCENES["s"].distance_resolution
+    else:
+        n = int(case[len("armadillo"):])
+        gt, lighting = _splat_gt(*prun._load_gt_mesh(SPEC, None), n, SPEC)
+        res = SPEC.distance_resolution
     width = float((lighting[:, 0].max() - lighting[:, 0].min()) / 2)
-    want = jlct.lct_reconstruct(t, width=width,
-                                bin_resolution_m=SPEC.distance_resolution)
-    got = lct.lct_reconstruct(t, width=width,
-                              bin_resolution_m=SPEC.distance_resolution,
+    return gt, width, res
+
+
+@pytest.mark.parametrize("case", [
+    "s8", "armadillo16", "armadillo32",
+    pytest.param("armadillo64", marks=pytest.mark.slow)])
+def test_lct_matches_jax(case, tmp_path):
+    """lct_reconstruct against JAX's with x64 off, as its runner runs it:
+    the lateral and depth grids and the init mesh bit for bit, the
+    albedo within 1e-6 of its max (torch.fft against XLA's FFT)."""
+    gt, width, res = _lct_input(case, tmp_path)
+    with jax.enable_x64(False):
+        want = jlct.lct_reconstruct(gt, width=width, bin_resolution_m=res)
+        thr = 0.25 * float(np.asarray(want.albedo).max())
+        v_j, f_j = jlct.init_mesh_from_lct(want, threshold=thr)
+    got = lct.lct_reconstruct(gt, width=width, bin_resolution_m=res,
                               device="cpu")
-    a_j = np.asarray(want.albedo)
-    a_p = got.albedo.numpy()
-    assert a_p.shape == a_j.shape == (8, 8) and a_j.max() > 0
-    np.testing.assert_allclose(a_p, a_j, rtol=0, atol=1e-4 * a_j.max())
-    bright = a_j > 0.25 * a_j.max()
-    assert bright.sum() >= 8
-    # the same depth bin; the f64 grids themselves differ by an ulp
-    # (torch.linspace and jnp.linspace round differently)
-    dz = SPEC.num_bins * SPEC.distance_resolution / 2 / (SPEC.num_bins - 1)
-    np.testing.assert_array_equal(np.rint(got.depth.numpy() / dz)[bright],
-                                  np.rint(np.asarray(want.depth) / dz)[bright])
     for a, b in ((got.x, want.x), (got.y, want.y), (got.depth, want.depth)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
-                                   atol=1e-15)
-    thr = 0.25 * float(a_j.max())
-    v_j, f_j = jlct.init_mesh_from_lct(want, threshold=thr)
-    v_p, f_p = lct.init_mesh_from_lct(got, threshold=thr)
-    np.testing.assert_array_equal(f_p, f_j)
-    np.testing.assert_array_equal(v_p, v_j)
+        b = np.asarray(b)
+        assert a.dtype == torch.float32 and b.dtype == np.float32
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      b.view(np.int32))
+    a_j = np.asarray(want.albedo)
+    np.testing.assert_allclose(got.albedo.numpy(), a_j, rtol=0,
+                               atol=1e-6 * a_j.max())
+    v_p, f_p = lct.init_mesh_from_lct(got, threshold=0.25 * float(
+        got.albedo.max()))
     assert f_p.shape[0] > 0
+    np.testing.assert_array_equal(f_p, f_j)
+    np.testing.assert_array_equal(v_p.view(np.int32), v_j.view(np.int32))
+
+
+def _scan_widths(n):
+    """The half-widths the runner takes from an n x n scan: the scenes'
+    (+-0.25 and +-0.35 grids in float32) and, where n divides 64, the
+    stand-in capture's downsampled one."""
+    out = []
+    for ext in (0.25, 0.35):
+        lighting, _ = nst.make_confocal_scan(n, lower=(-ext, -ext),
+                                             upper=(ext, ext))
+        out.append(float((lighting[:, 0].max() - lighting[:, 0].min()) / 2))
+    if 64 % n == 0:
+        xs = np.linspace(-0.35, 0.35, 64)[::64 // n].astype(np.float32)
+        out.append(float((xs.max() - xs.min()) / 2))
+    return out
+
+
+@pytest.mark.parametrize("n", range(2, 129))
+def test_lct_lateral_grid_matches_jnp_linspace(n):
+    """linspace_f32(-w, w, n) is jnp.linspace's with x64 off, bit for
+    bit, at each width the runner gives an n x n scan."""
+    with jax.enable_x64(False):
+        for w in _scan_widths(n):
+            want = np.asarray(jax.numpy.linspace(-w, w, n))
+            got = lct.linspace_f32(-w, w, n)
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32), err_msg=w)
+
+
+@pytest.mark.parametrize("M,res", [(1200, 1.2e-3), (2048, 1.2e-3)])
+def test_lct_depth_grids_match_jnp_linspace(M, res):
+    """The depth grid (0 to M*res/2) and the radiometric grid (0 to 1)."""
+    with jax.enable_x64(False):
+        for stop in (M * res / 2.0, 1.0):
+            want = np.asarray(jax.numpy.linspace(0.0, stop, M))
+            got = lct.linspace_f32(0.0, stop, M)
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32))
 
 
 def test_create_gt_matches_jax(tmp_path, bumpy_mesh):
@@ -192,8 +267,3 @@ def test_run_experiment_ggx_end_to_end(tmp_path):
     # the GGX GT is not the Lambertian one
     assert not np.allclose(got["gt_transient"], lam["gt_transient"])
 
-
-@pytest.mark.parametrize("scene,what", [("noise", "queue 1, item 11")])
-def test_unported_scenes_raise(tmp_path, scene, what):
-    with pytest.raises(NotImplementedError, match=what):
-        prun.run_experiment(scene, str(tmp_path), max_iters=1, device="cpu")
