@@ -104,6 +104,26 @@ Phases, each printing one JSON line with the card's name and power limit:
            x64 off) on the card: the first iteration's faces and l2 equal
            JAX's within the CPU test's tolerance; each iteration's
            deviation printed
+  nonconfocal
+           render_nonconfocal at full width (the flagship mesh, 64
+           (light, sensor) pairs: every 64th point of the 64x64 scan and
+           the next one, 20,000 directions a pair, 1,200 bins), forward
+           and the autograd gradient of sum(t^2); its shadow rays reach K3
+           (one launch), whose masks equal its plain version's; two card
+           calls bit for bit; 2 pairs' transient and gradient against the
+           CPU within 1e-5 of their largest magnitude
+  carving  space_carve_occupancy of the lct phase's armadillo GT (64x64 x
+           1,200; a 121 x 78 x 78 grid) on the card equal to the CPU's
+           voxel for voxel, its seconds and peak memory; carve_mesh (mc)
+           has faces; space_carving_projection of the LCT init mesh's
+           vertices, card equal to CPU
+  delaunay recompute_connectivity and grid_resample (res 64) of the
+           23,762-face "large" mesh, card faces equal to the CPU's;
+           upsample of the flagship mesh
+  mxu      the matmul-form narrow phase (occl_backend 'mxu') on K3's
+           render_intensity chunk (flagship mesh, 1.36 M rays): fewer than
+           1e-3 of the rays differ from K3; its time beside K3's;
+           render_intensity with 'mxu' on the small scene, card vs CPU
 
 Each K1 and K3 case prints the wrapper's time as a render calls it (the
 face hierarchy given), the kernel's (K1: occlusion and reduce apart), the
@@ -175,6 +195,13 @@ CARD = ""
 NOISE_ITERS = 4
 REAL_ITERS = 2
 REAL_SCAN = 64
+# the nonconfocal phase: (light, sensor) pairs on the card, and how many
+# of them are compared with the CPU
+NC_PAIRS = 64
+NC_CPU_PAIRS = 2
+# the carving phase projects every init vertex on the card, every 8th on
+# the CPU (a nearest-hit query against the ~200,000-face carve mesh)
+PROJECTION_CPU_STEP = 8
 SAME_KEY_L2_RTOL = 3e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SLEEP_CYCLES = 40_000_000   # device_ms's head start, ~20 ms at 1.98 GHz
@@ -1564,12 +1591,14 @@ def lct_case(dev, name, gt, width, res):
     emit("lct", **rec)
     require(all(grids.values()) and same,
             f"LCT {name}: the card's init mesh differs from the CPU's")
+    return v0
 
 
 def phase_lct(dev, workdir):
     """The LCT init on the card against the CPU at the loop's shapes: the
     armadillo scene's 64x64 x 1,200-bin GT (rendered on the card at the
-    scene's 20,000 samples), and the stand-in capture at 64x64 x 2,048."""
+    scene's 20,000 samples), and the stand-in capture at 64x64 x 2,048.
+    -> (that GT, its scan, its bin width, its init mesh's vertices)."""
     import nlos_surface_optimization_torch as pt
     from nlos_surface_optimization_torch.experiments import run as runner
     from nlos_surface_optimization_torch.experiments.scenes import SCENES
@@ -1588,13 +1617,15 @@ def phase_lct(dev, workdir):
                                 torch.from_numpy(lighting).to(dev),
                                 torch.from_numpy(lnormal).to(dev), cfg,
                                 pt.key(0))
-    lct_case(dev, SCENE, gt.cpu().numpy(), runner._width(lighting),
-             spec.distance_resolution)
+    gt = gt.cpu().numpy()
+    init_v = lct_case(dev, SCENE, gt, runner._width(lighting),
+                      spec.distance_resolution)
     path = os.path.join(workdir, "standin.mat")
     standin_capture(path, REAL_SCAN)
-    gt, lighting, _ = load_real_capture(path)
-    lct_case(dev, "s", gt, runner._width(lighting),
+    real, real_lighting, _ = load_real_capture(path)
+    lct_case(dev, "s", real, runner._width(real_lighting),
              SCENES["s"].distance_resolution)
+    return gt, lighting, spec.distance_resolution, init_v
 
 
 def phase_tools(dev):
@@ -1650,6 +1681,231 @@ def phase_tools(dev):
     require(abs(z[str(dev)] - z["cpu"]) <= 1e-6 * z["cpu"],
             f"average_z_distance differs: {z}")
     emit("tools", case="average_z_distance", value=z)
+
+
+def nonconfocal_run(mesh, pairs, cfg, rows=None):
+    """render_nonconfocal of the pairs (the first ``rows`` of them) and the
+    autograd gradient of sum(t^2) with respect to the vertices ->
+    (t, grad, forward seconds, backward seconds), on mesh's device."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.render.nonconfocal import (
+        render_nonconfocal,
+    )
+
+    lights, sensors, normals = (x[:rows] for x in pairs)
+    vv = mesh.v.clone().requires_grad_()
+    card = mesh.device.type == "cuda"
+    t0 = time.perf_counter()
+    t = render_nonconfocal(mesh._replace(v=vv), lights, sensors, normals,
+                           normals, cfg, pt.key(0))
+    if card:
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (t ** 2).sum().backward()
+    if card:
+        torch.cuda.synchronize()
+    return t.detach(), vv.grad, t1 - t0, time.perf_counter() - t1
+
+
+def phase_nonconfocal(dev, v, f):
+    """render_nonconfocal at full width: the flagship mesh, NC_PAIRS
+    (light, sensor) pairs, 20,000 directions a pair, 1,200 bins of 1.2
+    mm; the forward, then the gradient of sum(t^2).  K3's masks on the
+    path's shadow rays equal its plain version's (check_k3, from the
+    recorded launch); the nearest-hit query's time on the recorded rays;
+    two card calls bit for bit; the first NC_CPU_PAIRS
+    pairs' transient and gradient within the CPU tests' tolerance (1e-5
+    of the largest magnitude) of the CPU port's; the gradient finite and
+    nonzero -> the path's launches."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.render import nonconfocal as nc
+
+    cfg = pt.RenderConfig(**FLAGSHIP)
+    # every 64th point of the 64x64 scan is a light, the next its sensor
+    lighting, lnormal = pt.make_confocal_scan(SCAN)
+    step = SCAN * SCAN // NC_PAIRS
+    pairs = lighting[::step], lighting[1::step], lnormal[::step]
+    mesh = pt.make_mesh(v, f, device=dev)
+    seen = {}
+    k3, nearest = nc.segment_occluded, nc.nearest_hit
+
+    def recorder(name, fn):
+        def record(*args, **kwargs):
+            seen[name] = (args, kwargs)
+            return fn(*args, **kwargs)
+        return record
+
+    nc.segment_occluded = recorder("k3", k3)
+    nc.nearest_hit = recorder("nearest_hit", nearest)
+    try:
+        reset_launches()
+        t, g, fwd_s, bwd_s = nonconfocal_run(mesh, pairs, cfg)
+        launches = read_launches()
+    finally:
+        nc.segment_occluded, nc.nearest_hit = k3, nearest
+    t2, g2, fwd2_s, bwd2_s = nonconfocal_run(mesh, pairs, cfg)
+    require(torch.equal(t, t2) and torch.equal(g, g2),
+            "nonconfocal: two card calls differ")
+    require(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+            "nonconfocal: the gradient is not finite and nonzero")
+    want = {"occluded_splat": 0, "backward_face_sums": 0,
+            "vertex_epilogue": 0,
+            "segment_occluded": -(-NC_PAIRS // nc._PAIRS_PER_BATCH)}
+    require(launches == want, f"nonconfocal launches {launches}, expected "
+            f"{want}")
+    args, kwargs = seen["k3"]
+    t_self = args[2]
+    kw = {k: kwargs[k] for k in ("t_rel", "t_min")}
+    rec, _ = check_k3("nonconfocal", args, kw, reps=5, plain_reps=1)
+    nh_args, _ = seen["nearest_hit"]
+    nearest_ms = timed_ms(lambda: nearest(*nh_args), 2)
+    cpu = pt.make_mesh(v, f, device="cpu")
+    tc, gc, cpu_fwd_s, cpu_bwd_s = nonconfocal_run(cpu, pairs, cfg,
+                                                   NC_CPU_PAIRS)
+    tg, gg, _, _ = nonconfocal_run(mesh, pairs, cfg, NC_CPU_PAIRS)
+    t_err = float((t[:NC_CPU_PAIRS].cpu() - tc).abs().max())
+    g_err = float((gg.cpu() - gc).abs().max())
+    emit("nonconfocal", pairs=NC_PAIRS, directions=cfg.num_samples,
+         faces=f.shape[0], shadow_rays=int(t_self.shape[0]),
+         live_shadow_rays=int((t_self > 0).sum()),
+         occluded=rec["occluded"], forward_seconds=[fwd_s, fwd2_s],
+         backward_seconds=[bwd_s, bwd2_s], nearest_hit_ms=nearest_ms,
+         k3_ms=rec["ms"], launches=launches,
+         transient_sum=float(t.sum()),
+         cpu_pairs=NC_CPU_PAIRS, cpu_forward_seconds=cpu_fwd_s,
+         cpu_backward_seconds=cpu_bwd_s, transient_max_abs_err=t_err,
+         grad_max_abs_err=g_err, grad_max=float(gc.abs().max()))
+    require(float(tc.sum()) > 0, "nonconfocal: the CPU transient is zero")
+    require(t_err <= 1e-5 * float(tc.abs().max())
+            and g_err <= 1e-5 * float(gc.abs().max()),
+            f"nonconfocal: card and CPU differ (transient {t_err}, "
+            f"gradient {g_err})")
+    return launches
+
+
+def phase_carving(dev, gt, lighting, res, init_v):
+    """Space carving of the armadillo scene's 64x64 x 1,200 GT (the lct
+    phase's): the occupancy on the card equals the CPU's exactly; its
+    seconds and the card's peak memory; the carve mesh (mc) has faces;
+    space_carving_projection of the LCT init mesh's vertices on the card
+    equals the CPU's (every PROJECTION_CPU_STEP-th vertex on the CPU)."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.recon import carving
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    grid = carving.space_carve_occupancy(gt, lighting, res, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    want = carving.space_carve_occupancy(gt, lighting, res, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    bad = int((grid.occupancy.cpu() != want.occupancy).sum())
+    require(bad == 0 and all(torch.equal(a.cpu(), b) for a, b in
+                             zip(grid[1:], want[1:])),
+            f"carving: the card's occupancy differs from the CPU's in {bad} "
+            f"voxels")
+    t0 = time.perf_counter()
+    cv, cf = carving.carve_mesh(grid)
+    mesh_s = time.perf_counter() - t0
+    require(cf.shape[0] > 0, "carving: the carve mesh has no face")
+    out = {}
+    for where, step in ((dev, 1), ("cpu", PROJECTION_CPU_STEP)):
+        t0 = time.perf_counter()
+        out[str(where)] = carving.space_carving_projection(
+            init_v[::step], pt.make_mesh(cv, cf, device=where)).cpu()
+        if where != "cpu":
+            torch.cuda.synchronize()
+        out[str(where) + "_s"] = time.perf_counter() - t0
+    card = out[str(dev)]
+    raised = int((card[:, 2] > torch.from_numpy(init_v)[:, 2]).sum())
+    emit("carving", grid=list(grid.occupancy.shape),
+         scan_points=int(lighting.shape[0]),
+         chunk=carving.carve_chunk(lighting.shape[0],
+                                   grid.occupancy.numel()),
+         occupied=float(grid.occupancy.float().mean()),
+         card_seconds=card_s, cpu_seconds=cpu_s, peak_bytes=peak,
+         carve_mesh_faces=int(cf.shape[0]), carve_mesh_seconds=mesh_s,
+         projected_vertices=int(init_v.shape[0]), raised=raised,
+         projection_card_seconds=out[str(dev) + "_s"],
+         projection_cpu_seconds=out["cpu_s"],
+         projection_cpu_vertices=int(out["cpu"].shape[0]))
+    require(torch.equal(card[::PROJECTION_CPU_STEP], out["cpu"]),
+            "carving: the card's projection differs from the CPU's")
+
+
+def phase_delaunay(dev):
+    """recompute_connectivity and grid_resample (res 64, the border from
+    topology.border_vertices) of the 23,762-face 'large' mesh, card
+    against CPU: equal faces; upsample of the flagship mesh."""
+    from nlos_surface_optimization_torch.geometry import delaunay, topology
+
+    v, f = large_scene()
+    border = topology.border_vertices(f, v.shape[0])
+    for name, fn, kw in (
+            ("recompute_connectivity", delaunay.recompute_connectivity, {}),
+            ("grid_resample", delaunay.grid_resample,
+             dict(res=64, border_v=border))):
+        secs, res = {}, {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            res[str(where)] = fn(v, f, device=where, **kw)
+            secs[str(where)] = time.perf_counter() - t0
+        (a_v, a_f), (b_v, b_f) = res[str(dev)], res["cpu"]
+        same = bool(np.array_equal(a_f, b_f) and np.array_equal(a_v, b_v))
+        emit("delaunay", case=name, faces_in=f.shape[0],
+             faces_out=int(a_f.shape[0]), equal=same,
+             card_seconds=secs[str(dev)], cpu_seconds=secs["cpu"])
+        require(same and a_f.shape[0] > 0,
+                f"delaunay {name}: the card's faces differ from the CPU's")
+    fv, ff, _ = flagship_scene()
+    t0 = time.perf_counter()
+    uv, uf = delaunay.upsample(fv, ff)
+    require(uf.shape[0] == 4 * ff.shape[0], "upsample: not 4 faces a face")
+    emit("delaunay", case="upsample", faces_in=ff.shape[0],
+         faces_out=int(uf.shape[0]), vertices_out=int(uv.shape[0]),
+         seconds=time.perf_counter() - t0)
+
+
+def phase_mxu(dev, v, f):
+    """The matmul-form narrow phase (occl_backend 'mxu') on K3's
+    render_intensity chunk (flagship mesh, 64 sources, 1.36 M rays):
+    disagrees with K3 on fewer than 1e-3 of the rays; its time beside
+    K3's; render_intensity with 'mxu' on the small scene, card against
+    CPU."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.geometry.intersect import (
+        segment_occluded_mxu,
+    )
+    from nlos_surface_optimization_torch.render import fused_kernels as fk
+    from nlos_surface_optimization_torch.render import occl_kernels as ok
+
+    args, kwargs = chunk_inputs(dev, v, f, False)
+    hier = fk.face_hierarchy(*args[4:])
+    got = segment_occluded_mxu(*args, **kwargs)
+    want = ok.segment_occluded(*args, **kwargs, hier=hier)
+    bad = int((got != want).sum())
+    rays = args[0].shape[0]
+    emit("mxu", rays=rays, faces=f.shape[0], occluded=int(want.sum()),
+         differing=bad,
+         ms=timed_ms(lambda: segment_occluded_mxu(*args, **kwargs), 3),
+         k3_ms=timed_ms(lambda: ok.segment_occluded(*args, **kwargs,
+                                                    hier=hier), 5))
+    require(bad < 1e-3 * rays, f"mxu: {bad} of {rays} rays differ from K3")
+    sv, sf, _ = small_scene()
+    lighting, lnormal = pt.make_confocal_scan(4)
+    cfg = pt.RenderConfig(num_samples=400, num_bins=300,
+                          distance_resolution=5e-3, source_chunk=3,
+                          occl_backend="mxu")
+    a, b = (pt.render_intensity(pt.make_mesh(sv, sf, device=w), lighting,
+                                lnormal, cfg, pt.key(3)).cpu()
+            for w in (dev, "cpu"))
+    torch.testing.assert_close(a, b, rtol=2e-5, atol=0.0)
+    emit("mxu", case="render_intensity", max_abs_err=float((a - b).abs()
+                                                            .max()))
 
 
 def same_distribution(got, want, ideal, M):
@@ -1946,8 +2202,12 @@ def run(dev, steps, profile_dir=None):
         paths["ggx_loop"] = phase_loop(dev, os.path.join(tmp, "ggx"),
                                        Recorder(), "ggx", GGX_LOOP_ITERS,
                                        "ggx_loop")[0]
-        phase_lct(dev, tmp)
+        gt, gt_lighting, gt_res, init_v = phase_lct(dev, tmp)
         phase_tools(dev)
+        paths["nonconfocal"] = phase_nonconfocal(dev, v, f)
+        phase_carving(dev, gt, gt_lighting, gt_res, init_v)
+        phase_delaunay(dev)
+        phase_mxu(dev, v, f)
         paths["noise"] = phase_noise(dev, v, f, tmp)
         paths["real"] = phase_real(dev, v, f, tmp)
         paths["same_key"] = phase_same_key(dev, tmp)

@@ -15,7 +15,10 @@ backend switches keep their values; what they select here:
                                   eager splat (trace_chunk + forward_chunk)
                 'jnp'             the eager divide-based Möller–Trumbore
                                   (geometry/intersect), then the eager splat
-                'mxu'             TPU-only; NotImplementedError
+                'mxu'             Möller–Trumbore as float32 matrix
+                                  products (geometry/intersect
+                                  segment_occluded_mxu, TF32 off), then
+                                  the eager splat
   bwd_backend   'auto' / 'fused'  fused per-face backward (render/bwd_kernels,
                                   kernel on CUDA, plain version on CPU) for
                                   the Lambertian vertex gradient; the GGX,
@@ -32,10 +35,9 @@ from typing import Tuple
 
 import numpy as np
 
-OCCL_BACKENDS = ("auto", "fused", "pallas", "jnp")
+OCCL_BACKENDS = ("auto", "fused", "pallas", "jnp", "mxu")
 BWD_BACKENDS = ("auto", "fused", "xla")
 BRDFS = ("lambertian", "ggx")
-_TPU_ONLY = ("mxu",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,9 +107,6 @@ def check_backends(cfg: RenderConfig) -> None:
     for field, known in (("occl_backend", OCCL_BACKENDS),
                          ("bwd_backend", BWD_BACKENDS)):
         value = getattr(cfg, field)
-        if value in _TPU_ONLY:
-            raise NotImplementedError(
-                f"{field}={value!r} is a TPU backend; use one of {known}")
         if value not in known:
             raise ValueError(f"unknown {field} {value!r}")
     if cfg.brdf not in BRDFS:

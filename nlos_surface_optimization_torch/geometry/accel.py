@@ -1,8 +1,12 @@
-"""Morton face ordering (numpy, host side, between optimizer steps).
+"""Morton face ordering and Möller–Trumbore as a matrix product.
 
 Spatially compact face groups are what keep the occlusion kernel's
 candidate lists short: raster-ordered height-field groups span the whole
-mesh, Morton-ordered ones are patch shaped.  Copied from the JAX package.
+mesh, Morton-ordered ones are patch shaped.  The ordering is numpy, run on
+the host between optimizer steps, copied from the JAX package.
+
+``mt_coefficients`` gives the per-face block of the matrix form of
+Möller–Trumbore that ``geometry.intersect.segment_occluded_mxu`` uses.
 """
 
 from __future__ import annotations
@@ -61,3 +65,45 @@ def morton_order_torch(v: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
             x = (x | (x << shift)) & mask
         code |= x << axis
     return torch.sort(code, stable=True).indices
+
+
+def cross3(a, b):
+    """a x b over the last axis, component by component as jnp.cross."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def mt_coefficients(soup: torch.Tensor):
+    """Möller–Trumbore as a matrix product: per-face coefficient blocks.
+
+    MT's quantities are bilinear in per-ray and per-face data:
+        det   = d . (e2 x e1)
+        u_num = (o x d) . e2  -  d . (e2 x p1)
+        v_num = -(o x d) . e1 +  d . (e1 x p1)
+        t_num = o . (e1 x e2) -  p1 . (e1 x e2)
+    so with the per-ray features phi = [d, o x d, o, 1] (10) and a 10 x 4
+    block per face, (det, u_num, v_num, t_num) of every (ray, face) pair
+    come from one product phi @ B; the sign tests avoid the divides.
+
+    soup [..., CS, 10] (p1 | e1 | e2 | valid) -> (B [..., 10, 4*CS] with
+    the columns (det, u, v, t) of face 0, then of face 1, ...; the valid
+    plane [..., CS])."""
+    p1, e1, e2, val = soup[..., 0:3], soup[..., 3:6], soup[..., 6:9], \
+        soup[..., 9]
+    n2 = cross3(e2, e1)
+    m1 = cross3(e2, p1)
+    k1 = cross3(e1, p1)
+    n12 = -n2
+    zeros = torch.zeros_like(p1)
+    zcol = torch.zeros_like(val)[..., None]
+    b_det = torch.cat([n2, zeros, zeros, zcol], dim=-1)
+    b_u = torch.cat([-m1, e2, zeros, zcol], dim=-1)
+    b_v = torch.cat([k1, -e1, zeros, zcol], dim=-1)
+    offset = -(p1[..., 0] * n12[..., 0] + p1[..., 1] * n12[..., 1]
+               + p1[..., 2] * n12[..., 2])
+    b_t = torch.cat([zeros, zeros, n12, offset[..., None]], dim=-1)
+    B = torch.stack([b_det, b_u, b_v, b_t], dim=-2)      # [..., CS, 4, 10]
+    B = B.reshape(*B.shape[:-3], -1, 10).transpose(-1, -2)
+    return B, val

@@ -88,6 +88,16 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).to(x.dtype)
 
 
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in full float32 (TF32 off for the call)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def norm3(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over the last axis of length 3, summed x, y, z in
     order and correctly rounded (the rounding the JAX package's norm

@@ -28,6 +28,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..geometry.mesh import matmul_f32
+
 
 def define_psf(N: int, M: int, slope: float) -> np.ndarray:
     """NLOS blur kernel: the light-cone surface |(4*slope)^2*(x^2+y^2) - z|
@@ -101,16 +103,6 @@ class LCTResult(NamedTuple):
     vol: torch.Tensor      # [Mc,N,N] cropped reconstruction volume (f32)
 
 
-def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in full float32 (TF32 off for the call)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return a @ b
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _lct_core(data, psf, mtx, mtxi, snr: float, N: int, M: int,
               isdiffuse: bool, isbackprop: bool):
     fpsf = torch.fft.fftn(psf)
@@ -127,11 +119,11 @@ def _lct_core(data, psf, mtx, mtxi, snr: float, N: int, M: int,
 
     tdata = torch.zeros((2 * M, 2 * N, 2 * N), dtype=data.dtype,
                         device=data.device)
-    tdata[:M, :N, :N] = _matmul_f32(mtx, data.reshape(M, -1)).reshape(M, N, N)
+    tdata[:M, :N, :N] = matmul_f32(mtx, data.reshape(M, -1)).reshape(M, N, N)
 
     tvol = torch.fft.ifftn(torch.fft.fftn(tdata) * invpsf)
     tvol = tvol[:M, :N, :N]
-    vol = _matmul_f32(mtxi, tvol.reshape(M, -1).real.contiguous())
+    vol = matmul_f32(mtxi, tvol.reshape(M, -1).real.contiguous())
     return torch.clamp(vol.reshape(M, N, N), min=0.0)
 
 

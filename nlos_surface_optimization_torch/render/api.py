@@ -105,8 +105,8 @@ def _padded_rows(x, rows: int, device) -> torch.Tensor:
 def _hierarchy(mesh: Mesh, cfg: RenderConfig) -> Optional[FaceHierarchy]:
     """The kernels' view of the mesh, built once per call for every chunk;
     None where no kernel reads it: on the CPU (the wrappers run their
-    plain versions) and with occl_backend 'jnp'."""
-    if mesh.device.type != "cuda" or cfg.occl_backend == "jnp":
+    plain versions) and with occl_backend 'jnp' or 'mxu'."""
+    if mesh.device.type != "cuda" or cfg.occl_backend in ("jnp", "mxu"):
         return None
     return face_hierarchy(mesh.v, mesh.f, mesh.f_valid)
 
@@ -116,7 +116,7 @@ def _trace_and_forward(mesh: Mesh, lc, nc_, key, cfg: RenderConfig, spt: int,
                        alpha=None):
     """(RayBatch, fine histogram) for one source chunk, through the fused
     kernel or the eager trace + splat pair (same semantics)."""
-    if cfg.occl_backend in ("auto", "fused"):  # K1; 'pallas', 'jnp': below
+    if cfg.occl_backend in ("auto", "fused"):  # K1; the others: below
         return trace_forward_fused(mesh, lc, nc_, key, cfg, spt, refine,
                                    source_offset=off, hier=hier, alpha=alpha)
     rays = trace_chunk(mesh, lc, nc_, key, cfg, spt, source_offset=off,

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..geometry.intersect import segment_occluded
+from ..geometry.intersect import segment_occluded, segment_occluded_mxu
 from ..geometry.mesh import Mesh, face_normals_areas, norm3, scatter_faces
 from ..geometry.sampling import stratified_barycoords
 from . import brdf as ggx
@@ -162,11 +162,13 @@ def trace_chunk(mesh: Mesh, lighting, lighting_normal, key, cfg: RenderConfig,
     (render/occl_kernels.segment_occluded, its plain version on the CPU;
     ``hier`` the mesh's fused_kernels.face_hierarchy, built per call when
     None), or with occl_backend 'jnp' the eager divide-based
-    segment_occluded."""
+    segment_occluded, with 'mxu' its matrix-product form."""
     rays_pre, args, kwargs = occlusion_inputs(mesh, lighting, lighting_normal,
                                               key, cfg, spt, source_offset)
     if cfg.occl_backend == "jnp":
         occ = segment_occluded(*args, **kwargs)
+    elif cfg.occl_backend == "mxu":
+        occ = segment_occluded_mxu(*args, **kwargs)
     else:
         from .occl_kernels import segment_occluded as occl
 

@@ -525,3 +525,95 @@ def test_spad_chunk_invariance_on_card(cuda):
         one = spad_model(sampling.split(key, 40)[11], ideal[11], jt, jc,
                          params, device=cuda)
         assert torch.equal(one, raw[11])
+
+
+def _nonconfocal(device, L=4, n=2000):
+    """render_nonconfocal of the bumpy field from L wall lights to sensors
+    off to the side (grazing shadow rays) and the gradient of sum(t^2)."""
+    from nlos_surface_optimization_torch.render.nonconfocal import (
+        render_nonconfocal,
+    )
+
+    v, f = _bumpy()
+    mesh = pt.make_mesh(v, f, device=device)
+    vv = mesh.v.clone().requires_grad_()
+    lighting = np.array([[0.1 * i - 0.15, 0.0, 0.0] for i in range(L)],
+                        np.float32)
+    sensors = np.array([[0.8, 0.1 * i - 0.15, 0.45] for i in range(L)],
+                       np.float32)
+    nrm = np.tile(np.float32([0.0, 0.0, 1.0]), (L, 1))
+    cfg = pt.RenderConfig(num_bins=400, distance_resolution=5e-3)
+    t = render_nonconfocal(mesh._replace(v=vv), lighting, sensors, nrm, nrm,
+                           cfg, pt.key(41), num_dirs=n)
+    (t ** 2).sum().backward()
+    return t.detach().cpu(), vv.grad.cpu()
+
+
+def test_nonconfocal_card_matches_cpu(cuda):
+    """The shadow rays through K3 on the card: transient and gradient
+    within the CPU tests' tolerance of the CPU's (1e-5 of the largest
+    magnitude), two card calls bit for bit, the gradient finite."""
+    before = ok.segment_occluded.launches
+    t, g = _nonconfocal(cuda)
+    assert ok.segment_occluded.launches == before + 1
+    t2, g2 = _nonconfocal(cuda)
+    assert torch.equal(t, t2) and torch.equal(g, g2)
+    t_c, g_c = _nonconfocal("cpu")
+    assert float(t_c.sum()) > 0 and bool(torch.isfinite(g).all())
+    torch.testing.assert_close(t, t_c, rtol=0,
+                               atol=1e-5 * float(t_c.abs().max()))
+    torch.testing.assert_close(g, g_c, rtol=0,
+                               atol=1e-5 * float(g_c.abs().max()))
+
+
+def test_carve_card_equals_cpu(cuda):
+    """space_carve_occupancy on the card equals the CPU's voxel for voxel
+    (64 scan points, the flagship's 121 x 78 x 78 grid)."""
+    from nlos_surface_optimization_torch.recon.carving import (
+        space_carve_occupancy,
+    )
+
+    rng = np.random.RandomState(0)
+    lighting = np.zeros((64, 3), np.float32)
+    lighting[:, :2] = rng.uniform(-0.25, 0.25, (64, 2))
+    first = rng.randint(700, 900, 64)
+    t = (np.arange(1200)[None, :] >= first[:, None]).astype(np.float32)
+    got = space_carve_occupancy(t, lighting, 1.2e-3, device=cuda)
+    want = space_carve_occupancy(t, lighting, 1.2e-3, device="cpu")
+    assert got.occupancy.is_cuda
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_delaunay_card_equals_cpu(cuda):
+    from nlos_surface_optimization_torch.geometry import delaunay, topology
+
+    v, f = _bumpy(13)
+    border = topology.border_vertices(f, v.shape[0])
+    for fn, kw in ((delaunay.recompute_connectivity, {}),
+                   (delaunay.grid_resample,
+                    dict(res=16, border_v=border, lower=(-0.3, -0.3),
+                         upper=(0.3, 0.3)))):
+        a = fn(v, f, device=cuda, **kw)
+        b = fn(v, f, device="cpu", **kw)
+        assert a[1].shape[0] > 0
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_mxu_narrow_phase_matches_k3_on_the_card(cuda):
+    """segment_occluded_mxu (float32 products, TF32 off) on grazing rays
+    against K3: fewer than 1e-3 of the rays disagree."""
+    from nlos_surface_optimization_torch.geometry.intersect import (
+        segment_occluded_mxu,
+    )
+
+    v, f = _bumpy()
+    mesh = pt.make_mesh(v, f, device=cuda)
+    o, d, t, fi = (torch.from_numpy(x).to(cuda)
+                   for x in _graze(v, f, 3, 20, 384)[:4])
+    args = (o, d, t, fi, mesh.v, mesh.f, mesh.f_valid)
+    got = segment_occluded_mxu(*args)
+    want = ok.segment_occluded(*args)
+    assert bool(want.any())
+    assert float((got != want).float().mean()) < 1e-3

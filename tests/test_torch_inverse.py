@@ -106,9 +106,28 @@ def test_eager_backends_match_the_kernel_path(bumpy_mesh):
     torch.testing.assert_close(g_e, g_k, rtol=2e-4, atol=1e-7)
 
 
+def test_mxu_backend_matches_jnp(bumpy_mesh):
+    """occl_backend='mxu' (the matmul-form visibility, then the eager
+    splat) renders, and its transient and gradient agree with 'jnp'."""
+    v, f = bumpy_mesh
+    _, cfg = _cfgs(source_chunk=6)
+    mesh = pt.make_mesh(v, f, device="cpu")
+    lighting, lnormal = pt.make_confocal_scan(4)
+    data = np.full((16, 300), 1e-3, np.float32)
+    w = np.ones((16, 300), np.float32)
+    t_j, g_j, _ = pt.inverse_render(mesh, data, w, lighting, lnormal,
+                                    cfg.replace(occl_backend="jnp"),
+                                    pt.key(KEY))
+    t_m, g_m, _ = pt.inverse_render(mesh, data, w, lighting, lnormal,
+                                    cfg.replace(occl_backend="mxu"),
+                                    pt.key(KEY))
+    assert float(t_m.max()) > 0
+    torch.testing.assert_close(t_m, t_j, rtol=2e-5, atol=1e-8)
+    torch.testing.assert_close(g_m, g_j, rtol=2e-4, atol=1e-7)
+
+
 @pytest.mark.parametrize("field,value,error", [
     ("occl_backend", "nope", ValueError),
-    ("occl_backend", "mxu", NotImplementedError),
     ("bwd_backend", "nope", ValueError),
     ("brdf", "phong", ValueError),
 ])

@@ -1,5 +1,7 @@
 """The port's standalone visibility (kernel K3, render/occl_kernels.py),
-trace_chunk and render_intensity against the JAX package.
+its matmul-form narrow phase (geometry/intersect.segment_occluded_mxu,
+occl_backend 'mxu'), trace_chunk and render_intensity against the JAX
+package.
 
 On the CPU the K3 wrapper runs its plain version (fused_kernels.
 occluded_plain, every face tested); the JAX kernel runs in interpret
@@ -15,6 +17,8 @@ import pytest
 import torch
 
 import nlos_surface_optimization_tpu as nst
+from nlos_surface_optimization_tpu.geometry import accel as jaccel
+from nlos_surface_optimization_tpu.geometry import intersect as jintersect
 from nlos_surface_optimization_tpu.geometry import mesh as jmesh
 from nlos_surface_optimization_tpu.geometry import topology as jtopology
 from nlos_surface_optimization_tpu.geometry.intersect import segment_occluded
@@ -22,11 +26,15 @@ from nlos_surface_optimization_tpu.render import pallas_kernels as jpk
 from nlos_surface_optimization_tpu.render import render_intensity as jintensity
 
 import nlos_surface_optimization_torch as pt
-from nlos_surface_optimization_torch.geometry import topology
-from nlos_surface_optimization_torch.geometry.accel import morton_order_faces
+from nlos_surface_optimization_torch.geometry import intersect, topology
+from nlos_surface_optimization_torch.geometry.accel import (
+    morton_order_faces,
+    mt_coefficients,
+)
 from nlos_surface_optimization_torch.render import core
 from nlos_surface_optimization_torch.render import fused_kernels as fk
 from nlos_surface_optimization_torch.render import occl_kernels as ok
+from test_accel import _layered_mesh
 
 torch.set_num_threads(1)
 
@@ -388,3 +396,100 @@ def test_segment_occluded_refuses_other_devices():
     with pytest.raises(ValueError):
         ok.segment_occluded(x, x, x[:, 0], x[:, 0].int(), x, x.long(),
                             x[:, 0].bool())
+
+
+def test_mt_coefficients_match_jax():
+    """The matmul form's per-face blocks: JAX's op by op (disable_jit) bit
+    for bit; JAX's eager call, whose jnp.cross XLA compiles and fuses,
+    within 1e-6 of the largest coefficient."""
+    soup = np.random.RandomState(2).randn(3, 5, 10).astype(np.float32)
+    soup[..., 9] = soup[..., 9] > 0
+    B, val = mt_coefficients(_t(soup))
+    assert B.shape == (3, 10, 20) and val.shape == (3, 5)
+    with jax.enable_x64(False):
+        want_fused = np.asarray(jaccel.mt_coefficients(jnp.asarray(soup))[0])
+        with jax.disable_jit():
+            want, want_val = (np.asarray(x) for x in
+                              jaccel.mt_coefficients(jnp.asarray(soup)))
+    np.testing.assert_array_equal(B.numpy(), want)
+    np.testing.assert_array_equal(val.numpy(), want_val)
+    np.testing.assert_allclose(B.numpy(), want_fused, rtol=0,
+                               atol=1e-6 * np.abs(want_fused).max())
+
+
+def _mxu_rays(f, n=700, seed=1):
+    """tests/test_mxu_narrow.py's rays: wall origins to random targets
+    above and beyond the layered mesh, each with a random self face."""
+    rng = np.random.RandomState(seed)
+    o = np.zeros((n, 3), np.float32)
+    o[:, :2] = rng.uniform(-0.25, 0.25, (n, 2))
+    tgt = np.stack([rng.uniform(-0.25, 0.25, n), rng.uniform(-0.25, 0.25, n),
+                    rng.uniform(0.25, 0.6, n)], 1).astype(np.float32)
+    d = tgt - o
+    t = np.linalg.norm(d, axis=1)
+    d = (d / t[:, None]).astype(np.float32)
+    return o, d, t.astype(np.float32), rng.randint(
+        0, f.shape[0], n).astype(np.int32)
+
+
+@pytest.mark.parametrize("tile,ray_chunk,valid", [
+    (512, 16384, "all"), (7, 13, "all"), (512, 100, "half")])
+def test_segment_occluded_mxu_matches_jax(tile, ray_chunk, valid):
+    """The matmul-form narrow phase against JAX's (jitted) and against the
+    divide-based eager predicate: each disagreeing on fewer than 1e-3 of
+    the rays (tests/test_mxu_narrow.py's bound); the count is printed."""
+    v, f = _layered_mesh()
+    fv = np.ones(f.shape[0], bool)
+    if valid == "half":
+        fv[::2] = False
+    rays = _mxu_rays(f)
+    jargs = [jnp.asarray(x) for x in rays + (v, f, fv)]
+    with jax.enable_x64(False):
+        want = np.asarray(jintersect.segment_occluded_mxu(*jargs))
+    pargs = [_t(x) for x in rays + (v, f.astype(np.int64), fv)]
+    got = intersect.segment_occluded_mxu(*pargs, tile=tile,
+                                         ray_chunk=ray_chunk).numpy()
+    eager = intersect.segment_occluded(*pargs).numpy()
+    print("mxu rays differing: from JAX's", int((got != want).sum()),
+          "from the eager predicate", int((got != eager).sum()), "of",
+          len(got))
+    assert want.any() and (~want).any()
+    assert (got != want).mean() < 1e-3
+    assert (got != eager).mean() < 1e-3
+
+
+def test_render_intensity_mxu_matches_jax(bumpy_mesh):
+    """render_intensity through the matmul form (trace_chunk with
+    occl_backend 'mxu') against JAX's with 'mxu'; equal cull masks."""
+    v, f = bumpy_mesh
+    kw = dict(num_samples=400, num_bins=300, distance_resolution=5e-3,
+              occl_backend="mxu")
+    lighting, lnormal = nst.make_confocal_scan(4)
+    want = np.asarray(jintensity(jmesh.make_mesh(v, f), lighting, lnormal,
+                                 nst.RenderConfig(**kw), jax.random.key(KEY)))
+    got = pt.render_intensity(pt.make_mesh(v, f, device="cpu"), lighting,
+                              lnormal, pt.RenderConfig(**kw), pt.key(KEY))
+    assert want.max() > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5)
+    aff = topology.face_affinity(f)
+    np.testing.assert_array_equal(
+        topology.remove_triangles(f, aff, got.numpy()),
+        topology.remove_triangles(f, aff, want))
+
+
+def test_trace_chunk_mxu_agrees_with_jnp(bumpy_mesh):
+    """trace_chunk with 'mxu' gives the rays of the divide-based 'jnp' on
+    the tests' scene."""
+    v, f = bumpy_mesh
+    mesh = pt.make_mesh(v, f, device="cpu")
+    cfg = pt.RenderConfig(num_samples=400, num_bins=300,
+                          distance_resolution=5e-3)
+    lighting, lnormal = (_t(x) for x in pt.make_confocal_scan(4))
+    spt = cfg.samples_per_face(f.shape[0])
+    a = core.trace_chunk(mesh, lighting, lnormal, pt.key(KEY),
+                         cfg.replace(occl_backend="mxu"), spt)
+    b = core.trace_chunk(mesh, lighting, lnormal, pt.key(KEY),
+                         cfg.replace(occl_backend="jnp"), spt)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert (~a.valid).any()
