@@ -124,6 +124,18 @@ Phases, each printing one JSON line with the card's name and power limit:
            render_intensity chunk (flagship mesh, 1.36 M rays): fewer than
            1e-3 of the rays differ from K3; its time beside K3's;
            render_intensity with 'mxu' on the small scene, card vs CPU
+  shard    source-axis sharding (parallel/): (a) the flagship's
+           sharded_render_transient (refine 1 and 10) and
+           sharded_inverse_render ('fn'; 'vn' with the gn term) over 1, 2
+           and 4 virtual shards on the card, each transient equal to the
+           unsharded call's, the one-shard gradient too, 2 and 4 shards'
+           within SHARD_GRAD_TOL of max|g|, K1 and K2 launches equal to
+           the chunks, the seconds beside the unsharded call's; (b)
+           multihost.initialize(backend="nccl") with one rank, in its own
+           process: equal to (a)'s one-shard result; (c) create_gt over 4
+           virtual shards of the armadillo scene: its .mat files equal the
+           loop phase's; (d) with two cards or more, one NCCL process a
+           card (on one card the phase says it did not run)
 
 Each K1 and K3 case prints the wrapper's time as a render calls it (the
 face hierarchy given), the kernel's (K1: occlusion and reduce apart), the
@@ -203,6 +215,14 @@ NC_CPU_PAIRS = 2
 # the CPU (a nearest-hit query against the ~200,000-face carve mesh)
 PROJECTION_CPU_STEP = 8
 SAME_KEY_L2_RTOL = 3e-4
+# the shard phase: virtual shard counts on one card; the sharded gradient
+# against the unsharded one, max deviation over max|g| (f32 sums
+# regrouped: each shard's chunk partials, then the shards'); the time
+# limit of its NCCL processes
+SHARD_COUNTS = (1, 2, 4)
+SHARD_GRAD_TOL = 1e-4
+SHARD_RANK_TIMEOUT = 300
+SHARD_REPS = 3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SLEEP_CYCLES = 40_000_000   # device_ms's head start, ~20 ms at 1.98 GHz
 SPEED_OF_LIGHT = 299_792_458.0   # m/s: a jitter of t seconds is c*t of path
@@ -1415,11 +1435,16 @@ class Recorder:
         return next(t for t, m in self.lines if m.startswith(prefix))
 
 
-def gt_chunks(faces, samples, sources, shards):
-    """K1 launches of create_gt: the chunk it picks (2 M rays at most, 256
-    sources at most), over its shards."""
+def gt_chunk(faces, samples):
+    """The source chunk create_gt picks: 2 M rays at most, 256 sources at
+    most."""
     spt0 = 1 + (samples - 1) // max(faces, 1)
-    chunk = max(1, min(256, 2_000_000 // max(faces * spt0, 1)))
+    return max(1, min(256, 2_000_000 // max(faces * spt0, 1)))
+
+
+def gt_chunks(faces, samples, sources, shards):
+    """K1 launches of create_gt: its chunks over its shards."""
+    chunk = gt_chunk(faces, samples)
     return sum(-(-len(s) // chunk)
                for s in np.array_split(np.arange(sources), shards))
 
@@ -2089,6 +2114,263 @@ def phase_same_key(dev, tmp):
     return launches
 
 
+def _timed(fn):
+    """(fn(), host seconds) with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def shard_inputs(dev, v, f, plane, path):
+    """The shard phase's flagship inverse problem: the flat plane's mesh
+    on dev, the GT transient of (v, f) at refine 10 and its weights, the
+    scan; saved to ``path`` (CPU tensors) for shard_worker's processes."""
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.optim import loss
+
+    cfg = pt.RenderConfig(**FLAGSHIP)
+    lighting, lnormal = pt.make_confocal_scan(SCAN)
+    gt, _ = pt.render_transient(pt.make_mesh(v, f, device=dev), lighting,
+                                lnormal, cfg, pt.key(0))
+    weight = loss.create_weighting_function(gt, 1.0)
+    torch.save({"v": torch.from_numpy(plane), "f": torch.from_numpy(f),
+                "data": gt.cpu(), "weight": weight.cpu(),
+                "lighting": torch.from_numpy(lighting),
+                "lnormal": torch.from_numpy(lnormal)}, path)
+    return pt.make_mesh(plane, f, device=dev), gt, weight, lighting, lnormal
+
+
+def shard_worker(inputs, out, rank, world, address):
+    """One rank of the shard phase's NCCL runs (started by
+    ``shard_ranks`` as its own process, card LOCAL_RANK): the flagship 'fn'
+    inverse render of ``shard_inputs`` over ``global_source_mesh()``: a
+    first call, then SHARD_REPS timed ones (host clock, the card
+    synchronized and the ranks met at a barrier before each).  Rank 0
+    saves the transient, the gradient, whether every call agrees with the
+    first bit for bit, the seconds and ``scaling_summary()``."""
+    import torch.distributed as dist
+
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.parallel import multihost
+    from nlos_surface_optimization_torch.parallel import shard
+
+    rank, world = int(rank), int(world)
+    inp = torch.load(inputs)
+    multihost.initialize(address, world, rank, backend="nccl")
+    try:
+        dmesh = multihost.global_source_mesh()
+        dev = dmesh.device
+        mesh = pt.make_mesh(inp["v"].numpy(), inp["f"].numpy(), device=dev)
+        data, weight = inp["data"].to(dev), inp["weight"].to(dev)
+
+        def call():
+            return shard.sharded_inverse_render(
+                mesh, data, weight, inp["lighting"], inp["lnormal"],
+                pt.RenderConfig(**FLAGSHIP), pt.key(0), dmesh)
+
+        (t, g), first_s = _timed(call)
+        seconds, equal = [], True
+        for _ in range(SHARD_REPS):
+            dist.barrier()
+            (t2, g2), sec = _timed(call)
+            seconds.append(sec)
+            equal = equal and torch.equal(t2, t) and torch.equal(g2, g)
+        if rank == 0:
+            torch.save({"t": t.cpu(), "g": g.cpu(), "seconds": seconds,
+                        "first_seconds": first_s, "repeat_equal": equal,
+                        "summary": multihost.scaling_summary(dmesh)}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_ranks(world, inputs, out, timeout=SHARD_RANK_TIMEOUT):
+    """Run shard_worker in ``world`` processes, one a card, joined at a
+    localhost port; every process is waited for or killed."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    address = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    code = ("import sys, chip_smoke; "
+            "chip_smoke.shard_worker(*sys.argv[1:])")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, inputs, out, str(r), str(world),
+         address], cwd=ROOT, env=dict(os.environ, LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"shard rank {r} of {world} failed:\n"
+                + log.decode(errors="replace")[-3000:])
+    return torch.load(out)
+
+
+def phase_shard(dev, v, f, plane, tmp, loop_workdir):
+    """Source-axis sharding (parallel/) at the flagship's full width: (a)
+    1, 2 and 4 virtual shards on the card against the unsharded calls;
+    (b) multihost.initialize(backend="nccl") with one rank, in its own
+    process, against (a)'s one-shard result; (c) create_gt over 4 virtual
+    shards of the armadillo scene against the loop phase's GT shards
+    (the same arguments); (d) where there are several cards, one NCCL
+    process a card."""
+    import scipy.io
+
+    import nlos_surface_optimization_torch as pt
+    from nlos_surface_optimization_torch.experiments import create_gt
+    from nlos_surface_optimization_torch.experiments import run as runner
+    from nlos_surface_optimization_torch.experiments.scenes import SCENES
+    from nlos_surface_optimization_torch.parallel import shard
+
+    cfg = pt.RenderConfig(**FLAGSHIP)
+    vn_cfg = cfg.replace(normal="vn", testing_flag=0)
+    gt_mesh = pt.make_mesh(v, f, device=dev)
+    inputs = os.path.join(tmp, "shard_inputs.pt")
+    flat, gt, weight, lighting, lnormal = shard_inputs(dev, v, f, plane,
+                                                       inputs)
+    flat_vn = flat._replace(vn=pt.vertex_normals(flat.v, flat.f,
+                                                 flat.f_valid))
+    key = pt.key(0)
+    chunks = -(-lighting.shape[0] // cfg.source_chunk)
+
+    # (a) the unsharded calls, then the same through 1, 2 and 4 shards
+    calls = {
+        "render_refine1": lambda dm: shard.sharded_render_transient(
+            gt_mesh, lighting, lnormal, cfg, key, dm, refine=1),
+        "render": lambda dm: shard.sharded_render_transient(
+            gt_mesh, lighting, lnormal, cfg, key, dm),
+        "inverse_fn": lambda dm: shard.sharded_inverse_render(
+            flat, gt, weight, lighting, lnormal, cfg, key, dm),
+        "inverse_vn": lambda dm: shard.sharded_inverse_render(
+            flat_vn, gt, weight, lighting, lnormal, vn_cfg, key, dm),
+    }
+    ref, ref_s = {}, {}
+    ref["render_refine1"], ref_s["render_refine1"] = _timed(
+        lambda: pt.render_transient(gt_mesh, lighting, lnormal, cfg, key,
+                                    refine=1)[0])
+    ref["render"], ref_s["render"] = _timed(
+        lambda: pt.render_transient(gt_mesh, lighting, lnormal, cfg, key)[0])
+    ref["inverse_fn"], ref_s["inverse_fn"] = _timed(
+        lambda: pt.inverse_render(flat, gt, weight, lighting, lnormal, cfg,
+                                  key)[:2])
+    ref["inverse_vn"], ref_s["inverse_vn"] = _timed(
+        lambda: pt.inverse_render(flat_vn, gt, weight, lighting, lnormal,
+                                  vn_cfg, key)[:2])
+
+    reset_launches()
+    one = None
+    for n in SHARD_COUNTS:
+        dm = shard.make_source_mesh([dev] * n)
+        for name, call in calls.items():
+            before = read_launches()
+            got, sec = _timed(lambda: call(dm))
+            after = read_launches()
+            k1 = after["occluded_splat"] - before["occluded_splat"]
+            k2 = after["backward_face_sums"] - before["backward_face_sums"]
+            inverse = name.startswith("inverse")
+            require(k1 == chunks and k2 == (chunks if inverse else 0),
+                    f"shard {name} n={n}: K1 {k1}, K2 {k2} launches for "
+                    f"{chunks} chunks")
+            t, want_t = (got[0], ref[name][0]) if inverse else (got,
+                                                               ref[name])
+            require(torch.equal(t, want_t),
+                    f"shard {name} n={n}: transient differs from unsharded")
+            fields = dict(shards=n, seconds=sec, unsharded_seconds=ref_s[name],
+                          k1=k1, k2=k2, transient_equal=True)
+            if inverse:
+                g, want_g = got[1], ref[name][1]
+                scale = float(want_g.abs().max())
+                dev_g = float((g - want_g).abs().max()) / scale
+                require(scale > 0 and dev_g <= SHARD_GRAD_TOL,
+                        f"shard {name} n={n}: gradient deviates "
+                        f"{dev_g:.3g} of max|g|")
+                require(n > 1 or torch.equal(g, want_g),
+                        f"shard {name}: one shard's gradient is not the "
+                        f"unsharded one bit for bit")
+                fields.update(grad_max_dev_over_max=dev_g,
+                              grad_equal=bool(torch.equal(g, want_g)))
+            if n == 1 and name == "inverse_fn":
+                one = got
+            emit("shard_a", call=name, **fields)
+
+    # (b) NCCL, one rank, in a process of its own
+    got, sec = _timed(lambda: shard_ranks(
+        1, inputs, os.path.join(tmp, "shard_nccl1.pt")))
+    require(torch.equal(got["t"], one[0].cpu())
+            and torch.equal(got["g"], one[1].cpu()) and got["repeat_equal"],
+            "shard (b): the NCCL rank's result differs from one shard's")
+    emit("shard_b", world=1, backend="nccl", equal=True,
+         call_seconds=got["seconds"], first_call_seconds=got["first_seconds"],
+         process_seconds=sec, summary=got["summary"])
+
+    # (c) create_gt over 4 virtual shards against the loop phase's shards
+    spec = SCENES[SCENE]
+    gt_v, gt_f = runner._load_gt_mesh(spec, None)
+    res = LOOP_SIZES["scan_resolution"] or spec.scan_resolution
+    out_dir = os.path.join(tmp, "shard_gt")
+    num_shards = 16 if res >= 256 else 8
+    samples = (LOOP_SIZES["gt_sample_num"]
+               or min(spec.gt_sample_num, 200_000))
+    before = read_launches()
+    files, sec = _timed(lambda: create_gt(
+        spec, gt_v, gt_f, out_dir, num_shards=num_shards, resolution=res,
+        sample_num=samples, key=pt.key(0),
+        dmesh=shard.make_source_mesh([dev] * 4)))
+    after = read_launches()
+    # each GT shard's sources split over 4 virtual shards, each in
+    # create_gt's chunks
+    chunk = gt_chunk(gt_f.shape[0], samples)
+    want_k1 = sum(4 * math.ceil(math.ceil(len(s) / 4) / chunk)
+                  for s in np.array_split(np.arange(res * res), num_shards))
+    k1 = after["occluded_splat"] - before["occluded_splat"]
+    require(k1 == want_k1, f"shard (c): {k1} K1 launches, expected "
+            f"{want_k1}")
+    for fn in files:
+        a = scipy.io.loadmat(fn)
+        b = scipy.io.loadmat(os.path.join(loop_workdir, "setup",
+                                          os.path.basename(fn)))
+        for k in ("gt_transient", "gt_v", "gt_f", "lighting", "bin_width"):
+            require(np.array_equal(a[k], b[k]),
+                    f"shard (c): {os.path.basename(fn)} {k} differs from "
+                    f"the unsharded create_gt's")
+    emit("shard_c", scene=SCENE, shards=4, files=len(files), equal=True,
+         seconds=sec, k1=k1)
+    launches = read_launches()   # (a) and (c): the path's in this process
+
+    # (d) one NCCL process a card
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        got, sec = _timed(lambda: shard_ranks(
+            cards, inputs, os.path.join(tmp, "shard_nccl.pt")))
+        dev_g = float((got["g"] - one[1].cpu()).abs().max()
+                      / one[1].abs().max())
+        require(torch.equal(got["t"], one[0].cpu())
+                and dev_g <= SHARD_GRAD_TOL and got["repeat_equal"],
+                f"shard (d): {cards} NCCL ranks differ from one shard "
+                f"(gradient {dev_g:.3g} of max|g|)")
+        emit("shard_d", world=cards, backend="nccl", transient_equal=True,
+             grad_max_dev_over_max=dev_g, call_seconds=got["seconds"],
+             process_seconds=sec, summary=got["summary"])
+    else:
+        emit("shard_d", ran=False,
+             reason=f"torch.cuda.device_count() is {cards}; one NCCL "
+                    f"process a card needs two cards or more")
+    emit("shard", launches=launches)
+    return launches
+
+
 def profile_step(descent, out_dir, name):
     """One more descent step under torch.profiler -> DIR/profile_<name>.txt
     and a JSON line: the step's seconds without the profiler, the device
@@ -2211,6 +2493,7 @@ def run(dev, steps, profile_dir=None):
         paths["noise"] = phase_noise(dev, v, f, tmp)
         paths["real"] = phase_real(dev, v, f, tmp)
         paths["same_key"] = phase_same_key(dev, tmp)
+        paths["shard"] = phase_shard(dev, v, f, plane, tmp, workdir)
 
     def by_path(name):
         return {p: n[name] for p, n in paths.items()}

@@ -11,6 +11,10 @@
   vertex_gradient_bins     per-bin gradient diagnostic of one vertex [B,3]
   transient_loss_and_grad  (weighted L2 loss, transient, vertex gradient)
 
+``transient_rows`` and ``inverse_rows`` are the chunk loops of
+render_transient and inverse_render over a block of sources whose first
+global index is given (each shard of parallel/shard.py is one).
+
 Sources are processed in chunks of cfg.source_chunk by a Python loop;
 on the card the kernels' view of the mesh (fused_kernels.face_hierarchy)
 is built once per call and handed to every chunk, as are the sampler's
@@ -64,7 +68,7 @@ def _as_tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32).to(device)
 
 
-def pathlengths(cfg: RenderConfig, device="cpu") -> torch.Tensor:
+def pathlengths(cfg: RenderConfig, device="cuda") -> torch.Tensor:
     return (cfg.bin_lower + torch.arange(cfg.num_bins, dtype=torch.float64,
                                          device=device)
             * cfg.distance_resolution)
@@ -131,16 +135,29 @@ def render_transient(mesh: Mesh, lighting, lighting_normal,
 
     ``refine`` defaults to cfg.bin_refine_resolution; refine=1 gives the
     raw (unsmoothed) histogram."""
-    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
-                                           cfg, key)
+    check_backends(cfg)
+    dev = mesh.device
     r = cfg.bin_refine_resolution if refine is None else refine
-    hier = _hierarchy(mesh, cfg)
+    t = transient_rows(mesh, _as_tensor(lighting, dev),
+                       _as_tensor(lighting_normal, dev), key.to(dev), cfg,
+                       _spt(cfg, mesh), r, _hierarchy(mesh, cfg), alpha)
+    return t, pathlengths(cfg, dev)
+
+
+def transient_rows(mesh: Mesh, lighting, lighting_normal, key,
+                   cfg: RenderConfig, spt: int, refine: int,
+                   hier: Optional[FaceHierarchy], alpha=None,
+                   source_offset: int = 0) -> torch.Tensor:
+    """The smoothed transient [L, B] of the sources lighting [L, 3] (f32
+    tensors on the mesh's device) whose first global index is
+    ``source_offset``, in chunks of cfg.source_chunk."""
+    lit, nrm, L, Lc, nc = _chunks(lighting, lighting_normal, cfg)
     fine = torch.cat([
-        _trace_and_forward(mesh, lit[i], nrm[i], key, cfg, spt, i * Lc, r,
-                           hier, alpha)[1]
+        _trace_and_forward(mesh, lit[i], nrm[i], key, cfg, spt,
+                           source_offset + i * Lc, refine, hier, alpha)[1]
         for i in range(nc)], dim=0)[:L]
-    t = smooth_and_coarsen(fine, cfg.distance_resolution, r, cfg.sigma_bin)
-    return t, pathlengths(cfg, mesh.device)
+    return smooth_and_coarsen(fine, cfg.distance_resolution, refine,
+                              cfg.sigma_bin)
 
 
 render_transient_host = render_transient
@@ -224,27 +241,52 @@ def _fused_chunk_body(mesh: Mesh, lc, nc_, off: int, key, dat, w,
     return transient, g if grad is None else grad + g
 
 
+def vertex_csr_for(mesh: Mesh, cfg: RenderConfig,
+                   mode: str) -> Optional[VertexCSR]:
+    """The fused backward's vertex CSR, built once per call; None where the
+    call runs no fused backward."""
+    if mode == "vertex" and _use_fused_bwd(cfg):
+        return vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
+    return None
+
+
+def inverse_rows(mesh: Mesh, data, weight, lighting, lighting_normal, key,
+                 cfg: RenderConfig, spt: int, mode: str, alpha,
+                 hier: Optional[FaceHierarchy], csr: Optional[VertexCSR],
+                 jitter=None, source_offset: int = 0):
+    """(transient [L,B], gradient summed over the chunks in chunk order,
+    not yet divided by the source count) of the sources lighting [L, 3]
+    (f32 tensors on the mesh's device) whose first global index is
+    ``source_offset``; data and weight are their rows [L, B]."""
+    lit, nrm, L, Lc, nc = _chunks(lighting, lighting_normal, cfg)
+    dev = mesh.device
+    data_p = _padded_rows(data, nc * Lc, dev)
+    weight_p = _padded_rows(weight, nc * Lc, dev)
+    parts, grad = [], None
+    for i in range(nc):
+        rows = slice(i * Lc, (i + 1) * Lc)
+        t, grad = _fused_chunk_body(mesh, lit[i], nrm[i],
+                                    source_offset + i * Lc, key,
+                                    data_p[rows], weight_p[rows], cfg, spt,
+                                    hier, csr, grad, mode, alpha, jitter)
+        parts.append(t)
+    return torch.cat(parts, dim=0)[:L], grad
+
+
 def _inverse(mesh: Mesh, data, weight, lighting, lighting_normal,
              cfg: RenderConfig, key, mode: str, alpha, jitter=None):
     """(transient [L,B], gradient) of sum_{l,b} weight*(data - T)^2
     averaged over sources: per-chunk gradients summed in chunk order, then
     divided by L."""
-    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
-                                           cfg, key)
+    check_backends(cfg)
     dev = mesh.device
-    data_p = _padded_rows(data, nc * Lc, dev)
-    weight_p = _padded_rows(weight, nc * Lc, dev)
-    hier = _hierarchy(mesh, cfg)
-    csr = (vertex_csr(mesh.f, mesh.f_valid, mesh.v.shape[0])
-           if mode == "vertex" and _use_fused_bwd(cfg) else None)
-    parts, grad = [], None
-    for i in range(nc):
-        rows = slice(i * Lc, (i + 1) * Lc)
-        t, grad = _fused_chunk_body(mesh, lit[i], nrm[i], i * Lc, key,
-                                    data_p[rows], weight_p[rows], cfg, spt,
-                                    hier, csr, grad, mode, alpha, jitter)
-        parts.append(t)
-    return torch.cat(parts, dim=0)[:L], grad / float(L)
+    lighting = _as_tensor(lighting, dev)
+    t, grad = inverse_rows(mesh, data, weight, lighting,
+                           _as_tensor(lighting_normal, dev), key.to(dev), cfg,
+                           _spt(cfg, mesh), mode, alpha,
+                           _hierarchy(mesh, cfg),
+                           vertex_csr_for(mesh, cfg, mode), jitter)
+    return t, grad / float(lighting.shape[0])
 
 
 def inverse_render(mesh: Mesh, data, weight, lighting, lighting_normal,

@@ -617,3 +617,80 @@ def test_mxu_narrow_phase_matches_k3_on_the_card(cuda):
     want = ok.segment_occluded(*args)
     assert bool(want.any())
     assert float((got != want).float().mean()) < 1e-3
+
+
+def _shard_case(cuda):
+    v, f = _bumpy()
+    lighting, lnormal = pt.make_confocal_scan(4)
+    cfg = pt.RenderConfig(num_samples=400, num_bins=300,
+                          distance_resolution=5e-3, source_chunk=3)
+    rng = np.random.RandomState(1)
+    data = torch.from_numpy(rng.rand(16, 300).astype(np.float32) * 1e-3)
+    w = torch.from_numpy(0.5 + rng.rand(16, 300).astype(np.float32))
+    return (pt.make_mesh(v, f, device=cuda), data.to(cuda), w.to(cuda),
+            lighting, lnormal, cfg)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_virtual_shards_on_the_card_equal_the_unsharded_render(cuda, n):
+    """n shards on one card (K1 forward, K2 backward on each): the
+    transients equal the unsharded render's bit for bit, the gradient too
+    for one shard and within f32 order for more."""
+    from nlos_surface_optimization_torch.parallel import (
+        make_source_mesh,
+        sharded_inverse_render,
+        sharded_render_transient,
+    )
+
+    mesh, data, w, lighting, lnormal, cfg = _shard_case(cuda)
+    t_ref, g_ref, _ = pt.inverse_render(mesh, data, w, lighting, lnormal,
+                                        cfg, pt.key(3))
+    raw_ref, _ = pt.render_transient(mesh, lighting, lnormal, cfg,
+                                     pt.key(3), refine=1)
+    dmesh = make_source_mesh([cuda] * n)
+    k1, k2 = fk.occluded_splat.launches, bk.backward_face_sums.launches
+    t, g = sharded_inverse_render(mesh, data, w, lighting, lnormal, cfg,
+                                  pt.key(3), dmesh)
+    chunks = n * -(-(16 // n) // 3)
+    assert fk.occluded_splat.launches - k1 == chunks
+    assert bk.backward_face_sums.launches - k2 == chunks
+    raw = sharded_render_transient(mesh, lighting, lnormal, cfg, pt.key(3),
+                                   dmesh, refine=1)
+    assert t.device.type == "cuda" and torch.equal(t, t_ref)
+    assert torch.equal(raw, raw_ref)
+    if n == 1:
+        assert torch.equal(g, g_ref)
+    torch.testing.assert_close(g, g_ref, rtol=0,
+                               atol=1e-6 * float(g_ref.abs().max()))
+
+
+def test_nccl_world_of_one_equals_the_local_mesh(cuda):
+    """multihost.initialize with NCCL, one rank: the group's all_reduce and
+    all_gather run on the card and leave the one-shard result unchanged."""
+    import socket
+
+    import torch.distributed as dist
+
+    from nlos_surface_optimization_torch.parallel import (
+        make_source_mesh,
+        multihost,
+        sharded_inverse_render,
+    )
+
+    mesh, data, w, lighting, lnormal, cfg = _shard_case(cuda)
+    want = sharded_inverse_render(mesh, data, w, lighting, lnormal, cfg,
+                                  pt.key(3), make_source_mesh([cuda]))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        dmesh = multihost.global_source_mesh()
+        assert dmesh.group is not None and dmesh.size == 1
+        got = sharded_inverse_render(mesh, data, w, lighting, lnormal, cfg,
+                                     pt.key(3), dmesh)
+        assert multihost.scaling_summary(dmesh)["processes"] == 1
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

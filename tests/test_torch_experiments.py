@@ -14,17 +14,25 @@ from nlos_surface_optimization_tpu.experiments.create_gt import (
     create_gt as jax_create_gt,
 )
 from nlos_surface_optimization_tpu.experiments import run as jrun
+from nlos_surface_optimization_tpu.experiments import scenes as jspec
 from nlos_surface_optimization_tpu.recon import lct as jlct
 
 import nlos_surface_optimization_torch as pt
-from nlos_surface_optimization_torch.experiments import SCENES, create_gt
+from nlos_surface_optimization_torch.experiments import (
+    SCENES,
+    SceneSpec,
+    create_gt,
+)
 from nlos_surface_optimization_torch.experiments import run as prun
 from nlos_surface_optimization_torch.io.mat import (
     load_checkpoint,
     load_real_capture,
 )
 from nlos_surface_optimization_torch.io.obj import write_obj
+from nlos_surface_optimization_torch.parallel import make_source_mesh
 from nlos_surface_optimization_torch.recon import lct
+
+from test_torch_sharding import jax_o0  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -188,10 +196,35 @@ def test_create_gt_matches_jax(tmp_path, bumpy_mesh):
         assert mb["gt_transient"].max() > 0
 
 
-def test_create_gt_refuses_a_device_mesh(tmp_path, bumpy_mesh):
-    v, f = bumpy_mesh
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        create_gt(SPEC, v, f, str(tmp_path), dmesh=object(), device="cpu")
+def test_create_gt_sharded_matches_unsharded_and_jax(tmp_path, jax_o0):
+    """tests/test_sharded_gt.py's case: create_gt over 8 virtual CPU shards
+    writes the unsharded create_gt's .mat shards bit for bit, and JAX's
+    create_gt(dmesh=...) within test_create_gt_matches_jax's tolerance
+    (JAX's sharded body at XLA's optimization level 0, as there it runs
+    op by op)."""
+    from test_torch_multihost import _tiny_gt_mesh
+
+    spec = SceneSpec("tiny", num_bins=240, distance_resolution=5e-3,
+                     gt_sample_num=2000, gt_scan_resolution=8)
+    v, f = _tiny_gt_mesh()
+    kw = dict(num_shards=4, key=pt.key(5))
+    sharded = create_gt(spec, v, f, str(tmp_path / "sh"),
+                        dmesh=make_source_mesh(["cpu"] * 8), **kw)
+    one = create_gt(spec, v, f, str(tmp_path / "one"), device="cpu", **kw)
+    files_j = jax_create_gt(jspec.SceneSpec(
+        "tiny", num_bins=240, distance_resolution=5e-3, gt_sample_num=2000,
+        gt_scan_resolution=8), v, f, str(tmp_path / "jax"), num_shards=4,
+        key=jax.random.key(5), dmesh=jax_o0.make_source_mesh(jax.devices()))
+    assert [os.path.basename(p) for p in sharded] == \
+        [os.path.basename(p) for p in files_j]
+    for a, b, c in zip(sharded, one, files_j):
+        ma, mb, mc = (scipy.io.loadmat(p) for p in (a, b, c))
+        for k in ("gt_transient", "gt_v", "gt_f", "lighting", "bin_width"):
+            np.testing.assert_array_equal(ma[k], mb[k], err_msg=k)
+        assert ma["gt_transient"].shape == (16, 240)
+        np.testing.assert_allclose(ma["gt_transient"], mc["gt_transient"],
+                                   rtol=2e-5, atol=1e-8)
+        assert mc["gt_transient"].max() > 0
 
 
 def test_synthetic_gt_mesh_matches_jax():
