@@ -47,6 +47,7 @@ from ..geometry.topology import (
 from ..io.mat import load_checkpoint, save_checkpoint
 from ..render.api import inverse_render, render_intensity
 from ..render.regularizers import normal_smoothing
+from ..utils import timers
 from ..utils.metrics import compute_v2
 from .adam_modified import AdamModifiedState, adam_modified
 from .loss import create_weighting_function, evaluate_loss_with_normal_smoothness
@@ -177,9 +178,13 @@ class InverseRenderingLoop:
 
     ``stats`` collects one record per rendered iteration (``kind`` "step":
     seconds, faces, sources) and per remesh (``kind`` "remesh": seconds in
-    geomlib, in render_intensity and in the rest; faces before and after
-    culling), each with the render's spt, source chunks and rays per
-    chunk."""
+    geomlib, in render_intensity and in the rest; faces after culling),
+    each with the render's spt and source chunks.
+
+    Program spans (utils/timers; recorded only under torch.profiler):
+    ``loop.remesh`` around a remesh, with its children ``remesh.geomlib``,
+    ``remesh.cull`` and ``remesh.rest``, whose clock readings are the
+    remesh record's three seconds."""
 
     def __init__(self, gt_transient, lighting, lighting_normal,
                  render_cfg: RenderConfig, loop_cfg: LoopConfig,
@@ -301,14 +306,12 @@ class InverseRenderingLoop:
         init, self._opt_update = adam_modified(lr=1.0)  # lr folded below
         self.opt_state = init(torch.from_numpy(self.state.v).to(self.device))
 
-    def _chunking(self, cfg: RenderConfig, faces: int, padded_faces: int):
-        """spt, source chunks and rays per chunk of a render of the current
-        mesh (the renderer's own arithmetic, render/api.py)."""
+    def _chunking(self, cfg: RenderConfig, faces: int):
+        """spt and source chunks of a render of the current mesh (the
+        renderer's own arithmetic, render/api.py)."""
         L = self.lighting.shape[0]
         Lc = min(cfg.source_chunk or L, L)
-        spt = cfg.samples_per_face(int(faces))
-        return dict(spt=spt, chunks=-(-L // Lc),
-                    chunk_rays=Lc * int(padded_faces) * spt)
+        return dict(spt=cfg.samples_per_face(int(faces)), chunks=-(-L // Lc))
 
     def _current_cfg(self) -> RenderConfig:
         s = self.state
@@ -335,40 +338,43 @@ class InverseRenderingLoop:
         if s.f.shape[0] > self.cfg.face_budget:
             return False
         self.log("remesh")
-        t0 = time.perf_counter()
-        s.v = integrate_vertices(s.old_v, s.f, s.v).astype(np.float32)
-        target = 0.5 / s.scan_resolution
-        # El Topo role first (merge approaching sheets, volume-capped ops),
-        # then isotropic remeshing, the reference's order
-        s.v, s.f, n_merges = el_topo_remesh(s.v, s.f, target, iterations=1)
-        if n_merges:
-            self.log(f"topology: {n_merges} sheet merge(s)")
-        s.v, s.f = isotropic_remesh(s.v, s.f, target,
-                                    iterations=self.cfg.remesh_iterations)
-        t1 = time.perf_counter()
-        # cull invisible triangles
-        F0 = s.f.shape[0]
-        mesh, cfgc = self._make_mesh(), self._current_cfg()
-        inten = render_intensity(mesh, self.lighting, self.lnormal, cfgc,
-                                 self.key)[:F0].cpu().numpy()
-        t2 = time.perf_counter()
-        keep = remove_triangles(s.f, face_affinity(s.f), inten)
-        s.f = s.f[keep]
-        s.v, s.f = remove_unreferenced(s.v, s.f)
-        s.f = morton_order_faces(s.v, s.f)
-        s.old_v = s.v.copy()
-        self._rebuild_topology()
-        self.weight = create_weighting_function(self.gt, self.cfg.gamma)
-        self._new_optimizer()
-        s.remesh_flag = False
-        s.run_count = 0
-        self.stats.append(dict(
-            kind="remesh", iteration=s.t, geomlib_seconds=t1 - t0,
-            intensity_seconds=t2 - t1,
-            rest_seconds=time.perf_counter() - t2, faces_before=F0,
-            faces_after=int(s.f.shape[0]), padded_faces=mesh.f.shape[0],
-            **self._chunking(cfgc, F0, mesh.f.shape[0])))
+        with timers.span("loop.remesh"):
+            self._remesh_body(s)
         return True
+
+    def _remesh_body(self, s: LoopState):
+        with timers.timed_span("remesh.geomlib") as geomlib:
+            s.v = integrate_vertices(s.old_v, s.f, s.v).astype(np.float32)
+            target = 0.5 / s.scan_resolution
+            # El Topo role first (merge approaching sheets, volume-capped
+            # ops), then isotropic remeshing, the reference's order
+            s.v, s.f, n_merges = el_topo_remesh(s.v, s.f, target,
+                                                iterations=1)
+            if n_merges:
+                self.log(f"topology: {n_merges} sheet merge(s)")
+            s.v, s.f = isotropic_remesh(
+                s.v, s.f, target, iterations=self.cfg.remesh_iterations)
+        # cull invisible triangles
+        with timers.timed_span("remesh.cull") as cull:
+            F0 = s.f.shape[0]
+            mesh, cfgc = self._make_mesh(), self._current_cfg()
+            inten = render_intensity(mesh, self.lighting, self.lnormal, cfgc,
+                                     self.key)[:F0].cpu().numpy()
+        with timers.timed_span("remesh.rest") as rest:
+            keep = remove_triangles(s.f, face_affinity(s.f), inten)
+            s.f = s.f[keep]
+            s.v, s.f = remove_unreferenced(s.v, s.f)
+            s.f = morton_order_faces(s.v, s.f)
+            s.old_v = s.v.copy()
+            self._rebuild_topology()
+            self.weight = create_weighting_function(self.gt, self.cfg.gamma)
+            self._new_optimizer()
+            s.remesh_flag = False
+            s.run_count = 0
+        self.stats.append(dict(
+            kind="remesh", iteration=s.t, geomlib_seconds=geomlib.seconds,
+            intensity_seconds=cull.seconds, rest_seconds=rest.seconds,
+            faces_after=int(s.f.shape[0]), **self._chunking(cfgc, F0)))
 
     # ----------------------------------------------------------------- step
 
@@ -447,7 +453,7 @@ class InverseRenderingLoop:
         self.stats.append(dict(
             kind="step", iteration=s.t, seconds=seconds,
             faces=int(s.f.shape[0]), sources=int(self.lighting.shape[0]),
-            **self._chunking(cfgc, s.f.shape[0], mesh.f.shape[0])))
+            **self._chunking(cfgc, s.f.shape[0])))
         h = self.history
         h["l2"].append(l2)
         h["l2_original"].append(original_l2)

@@ -28,6 +28,14 @@ Everything runs on the mesh's device; numpy inputs are moved there.
 package; a Python float is rounded to f32 first (core._alpha_like).  The jitter
 forward and gradient trace through ``trace_chunk`` (the standalone
 visibility kernel) and splat eagerly at refine 1, as the JAX package does.
+
+Program spans (utils/timers.span; recorded only under torch.profiler):
+``render.call`` around each render_transient, inverse render and
+render_intensity; inside it ``render.prepare`` (the face hierarchy and
+the vertex CSR, once a call) and, per chunk, ``render.sample`` and
+``render.k1`` or ``render.k3`` (core.py), ``render.smooth`` (the
+smoothing and the difference) and ``render.backward`` (K2 and its
+epilogue, or an eager backward).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch
 
 from ..config import RenderConfig, check_backends
 from ..geometry.mesh import Mesh, vertex_normals
+from ..utils import timers
 from .bwd_kernels import VertexCSR, backward_chunk_fused, vertex_csr
 from .fused_kernels import FaceHierarchy, face_hierarchy
 from .core import (
@@ -138,9 +147,12 @@ def render_transient(mesh: Mesh, lighting, lighting_normal,
     check_backends(cfg)
     dev = mesh.device
     r = cfg.bin_refine_resolution if refine is None else refine
-    t = transient_rows(mesh, _as_tensor(lighting, dev),
-                       _as_tensor(lighting_normal, dev), key.to(dev), cfg,
-                       _spt(cfg, mesh), r, _hierarchy(mesh, cfg), alpha)
+    with timers.span("render.call"):
+        with timers.span("render.prepare"):
+            hier = _hierarchy(mesh, cfg)
+        t = transient_rows(mesh, _as_tensor(lighting, dev),
+                           _as_tensor(lighting_normal, dev), key.to(dev), cfg,
+                           _spt(cfg, mesh), r, hier, alpha)
     return t, pathlengths(cfg, dev)
 
 
@@ -156,8 +168,9 @@ def transient_rows(mesh: Mesh, lighting, lighting_normal, key,
         _trace_and_forward(mesh, lit[i], nrm[i], key, cfg, spt,
                            source_offset + i * Lc, refine, hier, alpha)[1]
         for i in range(nc)], dim=0)[:L]
-    return smooth_and_coarsen(fine, cfg.distance_resolution, refine,
-                              cfg.sigma_bin)
+    with timers.span("render.smooth"):
+        return smooth_and_coarsen(fine, cfg.distance_resolution, refine,
+                                  cfg.sigma_bin)
 
 
 render_transient_host = render_transient
@@ -169,15 +182,17 @@ def render_intensity(mesh: Mesh, lighting, lighting_normal,
     invisible-triangle culling: the per-chunk intensities, each traced
     through ``trace_chunk`` (the standalone visibility kernel), added in
     chunk order."""
-    spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
-                                           cfg, key)
-    hier = _hierarchy(mesh, cfg)
-    out = None
-    for i in range(nc):
-        rays = trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
-                           source_offset=i * Lc, hier=hier)
-        part = intensity_chunk(rays, nrm[i], cfg, spt)
-        out = part if out is None else out + part
+    with timers.span("render.call"):
+        spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting,
+                                               lighting_normal, cfg, key)
+        with timers.span("render.prepare"):
+            hier = _hierarchy(mesh, cfg)
+        out = None
+        for i in range(nc):
+            rays = trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
+                               source_offset=i * Lc, hier=hier)
+            part = intensity_chunk(rays, nrm[i], cfg, spt)
+            out = part if out is None else out + part
     return out
 
 
@@ -215,30 +230,34 @@ def _fused_chunk_body(mesh: Mesh, lc, nc_, off: int, key, dat, w,
         jw, jg, joff = jitter
         rays = trace_chunk(mesh, lc, nc_, key, cfg, spt, source_offset=off,
                            hier=hier)
-        transient = jitter_convolve(forward_chunk(rays, nc_, cfg, spt,
-                                                  refine=1), jw, joff)
+        fine = forward_chunk(rays, nc_, cfg, spt, refine=1)
     else:
         refine = cfg.forward_refine
         rays, fine = _trace_and_forward(mesh, lc, nc_, key, cfg, spt, off,
                                         refine, hier, alpha)
-        transient = smooth_and_coarsen(fine, cfg.distance_resolution, refine,
-                                       cfg.sigma_bin)
-    diff = _difference(dat, transient, w, cfg)
-    if mode == "vertex" and _use_fused_bwd(cfg):
-        return transient, backward_chunk_fused(rays, mesh, nc_, diff, 0, cfg,
-                                               spt, csr=csr, grad=grad)
-    if mode == "vertex":
-        g = backward_chunk(rays, mesh, nc_, diff, 0, cfg, spt, alpha)
-    elif mode == "albedo":
-        g = backward_albedo_chunk(rays, nc_, diff, 0, cfg, spt)
-    elif mode == "alpha":
-        g = backward_alpha_chunk(rays, nc_, diff, 0, cfg, spt, alpha)
-    elif mode == "jitter":
-        g = backward_jitter_chunk(rays, mesh, nc_, diff, 0, cfg, spt, jw, jg,
-                                  joff)
-    else:
-        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-    return transient, g if grad is None else grad + g
+    with timers.span("render.smooth"):
+        if mode == "jitter":
+            transient = jitter_convolve(fine, jw, joff)
+        else:
+            transient = smooth_and_coarsen(fine, cfg.distance_resolution,
+                                           refine, cfg.sigma_bin)
+        diff = _difference(dat, transient, w, cfg)
+    with timers.span("render.backward"):
+        if mode == "vertex" and _use_fused_bwd(cfg):
+            return transient, backward_chunk_fused(
+                rays, mesh, nc_, diff, 0, cfg, spt, csr=csr, grad=grad)
+        if mode == "vertex":
+            g = backward_chunk(rays, mesh, nc_, diff, 0, cfg, spt, alpha)
+        elif mode == "albedo":
+            g = backward_albedo_chunk(rays, nc_, diff, 0, cfg, spt)
+        elif mode == "alpha":
+            g = backward_alpha_chunk(rays, nc_, diff, 0, cfg, spt, alpha)
+        elif mode == "jitter":
+            g = backward_jitter_chunk(rays, mesh, nc_, diff, 0, cfg, spt, jw,
+                                      jg, joff)
+        else:
+            raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+        return transient, g if grad is None else grad + g
 
 
 def vertex_csr_for(mesh: Mesh, cfg: RenderConfig,
@@ -281,11 +300,14 @@ def _inverse(mesh: Mesh, data, weight, lighting, lighting_normal,
     check_backends(cfg)
     dev = mesh.device
     lighting = _as_tensor(lighting, dev)
-    t, grad = inverse_rows(mesh, data, weight, lighting,
-                           _as_tensor(lighting_normal, dev), key.to(dev), cfg,
-                           _spt(cfg, mesh), mode, alpha,
-                           _hierarchy(mesh, cfg),
-                           vertex_csr_for(mesh, cfg, mode), jitter)
+    with timers.span("render.call"):
+        with timers.span("render.prepare"):
+            hier = _hierarchy(mesh, cfg)
+            csr = vertex_csr_for(mesh, cfg, mode)
+        t, grad = inverse_rows(mesh, data, weight, lighting,
+                               _as_tensor(lighting_normal, dev), key.to(dev),
+                               cfg, _spt(cfg, mesh), mode, alpha, hier, csr,
+                               jitter)
     return t, grad / float(lighting.shape[0])
 
 

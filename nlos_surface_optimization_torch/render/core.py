@@ -17,6 +17,12 @@ Divisions by a configuration constant that decide a histogram bin go
 through ``_div``, a division by a 0-dim tensor on the operand's device:
 PyTorch on CUDA turns division by a Python scalar into multiplication by
 its reciprocal, which can move a sample across a bin boundary.
+
+A chunk's trace records two program spans (utils/timers.span):
+``render.sample``, everything before the visibility call (the draws, the
+ray setup, the skip mask and, for the fused kernel, the contribution with
+its BRDF), then ``render.k1`` (the fused kernel's wrapper) or
+``render.k3`` (the visibility query of ``trace_chunk``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..config import RenderConfig
 from ..geometry.intersect import segment_occluded, segment_occluded_mxu
 from ..geometry.mesh import Mesh, face_normals_areas, norm3, scatter_faces
 from ..geometry.sampling import stratified_barycoords
+from ..utils import timers
 from . import brdf as ggx
 from .kernels import correlate_rows, gaussian_kernel, grouped_gaussian_tables
 
@@ -163,18 +170,20 @@ def trace_chunk(mesh: Mesh, lighting, lighting_normal, key, cfg: RenderConfig,
     ``hier`` the mesh's fused_kernels.face_hierarchy, built per call when
     None), or with occl_backend 'jnp' the eager divide-based
     segment_occluded, with 'mxu' its matrix-product form."""
-    rays_pre, args, kwargs = occlusion_inputs(mesh, lighting, lighting_normal,
-                                              key, cfg, spt, source_offset)
-    if cfg.occl_backend == "jnp":
-        occ = segment_occluded(*args, **kwargs)
-    elif cfg.occl_backend == "mxu":
-        occ = segment_occluded_mxu(*args, **kwargs)
-    else:
-        from .occl_kernels import segment_occluded as occl
+    with timers.span("render.sample"):
+        rays_pre, args, kwargs = occlusion_inputs(
+            mesh, lighting, lighting_normal, key, cfg, spt, source_offset)
+    with timers.span("render.k3"):
+        if cfg.occl_backend == "jnp":
+            occ = segment_occluded(*args, **kwargs)
+        elif cfg.occl_backend == "mxu":
+            occ = segment_occluded_mxu(*args, **kwargs)
+        else:
+            from .occl_kernels import segment_occluded as occl
 
-        occ = occl(*args, **kwargs, hier=hier)
-    return rays_pre._replace(
-        valid=rays_pre.valid & ~occ.reshape(rays_pre.h.shape))
+            occ = occl(*args, **kwargs, hier=hier)
+        return rays_pre._replace(
+            valid=rays_pre.valid & ~occ.reshape(rays_pre.h.shape))
 
 
 def _contrib_and_bins(rays: RayBatch, lighting_normal, cfg: RenderConfig,
@@ -223,12 +232,14 @@ def trace_forward_fused(mesh: Mesh, lighting, lighting_normal, key,
     Same semantics as trace_chunk + forward_chunk."""
     from .fused_kernels import occluded_splat
 
-    rays_pre, args, kwargs = splat_inputs(mesh, lighting, lighting_normal,
-                                          key, cfg, spt, refine,
-                                          source_offset, alpha)
-    occ, hist = occluded_splat(*args, **kwargs, hier=hier)
-    rays = rays_pre._replace(
-        valid=rays_pre.valid & ~occ.reshape(rays_pre.h.shape))
+    with timers.span("render.sample"):
+        rays_pre, args, kwargs = splat_inputs(mesh, lighting, lighting_normal,
+                                              key, cfg, spt, refine,
+                                              source_offset, alpha)
+    with timers.span("render.k1"):
+        occ, hist = occluded_splat(*args, **kwargs, hier=hier)
+        rays = rays_pre._replace(
+            valid=rays_pre.valid & ~occ.reshape(rays_pre.h.shape))
     return rays, hist
 
 
