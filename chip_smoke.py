@@ -33,6 +33,13 @@ Phases, each printing one JSON line with the card's name and power limit:
            sources, 1.36 M rays), the loop's largest chunk ("large") and
            rays against a 79,202-face height field; equal masks and
            candidate counts, two launches bit-identical
+  sample_rays
+           the sampler kernel (draws, rays, skip mask, contribution) against
+           its plain version, every output bit for bit, two launches
+           bit-identical: the descent's chunk (the "large" mesh, 64
+           sources, spt 1) with and without the contribution, and the GT
+           render's (GT_SOURCES sources, GT_SAMPLES samples); its time on
+           the card beside its bytes bound and the plain version's
   uniforms the threefry draws of one chunk on the card equal the CPU's
   small    inverse_render on the card against the CPU on a small scene
   intensity render_intensity on the card against the CPU on a small scene:
@@ -894,6 +901,94 @@ def phase_k3(dev, v, f):
                                  "bound_by")}
 
 
+# ------------------------------------------------------------ sampler
+
+
+def sample_rays_args(dev, v, f, sources, samples, refine, offset=0):
+    """sample_rays' arguments for one chunk of the flagship settings on
+    mesh v, f: ``sources`` sources from the middle of the scan (global
+    index ``offset`` first), ``samples`` samples a source."""
+    import nlos_surface_optimization_torch as pt
+
+    cfg = pt.RenderConfig(**{**FLAGSHIP, "num_samples": samples})
+    lighting, lnormal = pt.make_confocal_scan(SCAN)
+    sl = slice(offset, offset + sources)
+    mesh = pt.make_mesh(v, f, device=dev)
+    return (mesh, torch.from_numpy(lighting[sl]).to(dev),
+            torch.from_numpy(lnormal[sl]).to(dev), pt.key(0).to(dev), cfg,
+            cfg.samples_per_face(f.shape[0]), offset,
+            pt.face_normals_areas(mesh.v, mesh.f), refine, None)
+
+
+def sample_case(name, args, reps=20, plain_reps=2):
+    """The sampler kernel against its plain version (every output bit for
+    bit, two launches bit-identical), its time beside its bytes bound
+    (each input read once, each output written once) -> record."""
+    from nlos_surface_optimization_torch.render import sample_kernels as sk
+
+    got, again = sk.sample_rays(*args), sk.sample_rays(*args)
+    want = sk.sample_rays_plain(*args)
+    torch.cuda.synchronize()
+    mesh, lit, nrm, key, cfg, spt, _, faces, refine, _ = args
+    out = []
+    for a, b, c in ((got, want, again), (got.rays, want.rays, again.rays)):
+        for name_, x in a._asdict().items():
+            if name_ == "rays" or x is None:
+                continue
+            y, z = getattr(b, name_), getattr(c, name_)
+            require(torch.equal(x, y) and torch.equal(x, z),
+                    f"sample_rays {name}: {name_} differs from the plain "
+                    f"version or between launches")
+            if name_ not in ("area", "face_n") and not (
+                    name_ == "normal" and cfg.normal == "fn"):
+                out.append(x)
+    vn = cfg.normal == "vn"
+    inputs = [lit, nrm, key, mesh.v, mesh.f, mesh.f_valid, mesh.albedo,
+              *faces] + ([mesh.vn] if vn else [])
+    total = nbytes(*inputs) + nbytes(*out)
+    rec = dict(
+        case=name, rays=int(got.t_self.shape[0]), faces=int(mesh.f.shape[0]),
+        sources=int(lit.shape[0]), spt=spt, normal=cfg.normal,
+        contribution=refine is not None, bytes_written=nbytes(*out),
+        bytes_read=nbytes(*inputs),
+        ms=timed_ms(lambda: sk.sample_rays(*args), reps),
+        kernel_ms=device_ms(lambda: sk.sample_rays(*args), reps),
+        plain_ms=timed_ms(lambda: sk.sample_rays_plain(*args), plain_reps),
+        bound_ms=total / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    rec["roofline_pct"] = 100.0 * rec["bound_ms"] / rec["kernel_ms"]
+    emit("sample_rays", **rec)
+    return rec
+
+
+def phase_sample_rays(dev):
+    """The sampler kernel at the descent's chunk (the loop's largest mesh,
+    23,762 faces, 64 sources, spt 1, the fused forward's contribution)
+    and the GT render's (the loop scene's GT mesh, GT_SAMPLES samples,
+    GT_SOURCES sources from the middle of the scan, refine 10), and the
+    descent chunk's contribution-free form (trace_chunk's)."""
+    from nlos_surface_optimization_torch.experiments import run as runner
+    from nlos_surface_optimization_torch.experiments.scenes import SCENES
+    from nlos_surface_optimization_torch.geometry.accel import (
+        morton_order_faces,
+    )
+
+    lv, lf = large_scene()
+    refine = FLAGSHIP["bin_refine_resolution"]
+    main = sample_case("descent", sample_rays_args(
+        dev, lv, lf, FLAGSHIP["source_chunk"], FLAGSHIP["num_samples"],
+        refine))
+    sample_case("descent_trace", sample_rays_args(
+        dev, lv, lf, FLAGSHIP["source_chunk"], FLAGSHIP["num_samples"],
+        None))
+    gv, gf = runner._load_gt_mesh(SCENES[SCENE], None)
+    gf = morton_order_faces(gv, gf)
+    mid = SCAN * SCAN // 2
+    sample_case("gt", sample_rays_args(dev, gv, gf, GT_SOURCES, GT_SAMPLES,
+                                       refine, mid))
+    return {k: main[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                                 "bound_by")}
+
+
 # ------------------------------------------------------------ checks
 
 
@@ -902,11 +997,13 @@ def kernel_wrappers():
     from nlos_surface_optimization_torch.render import bwd_kernels as bk
     from nlos_surface_optimization_torch.render import fused_kernels as fk
     from nlos_surface_optimization_torch.render import occl_kernels as ok
+    from nlos_surface_optimization_torch.render import sample_kernels as sk
 
     return {"occluded_splat": fk.occluded_splat,
             "backward_face_sums": bk.backward_face_sums,
             "vertex_epilogue": bk.vertex_epilogue,
-            "segment_occluded": ok.segment_occluded}
+            "segment_occluded": ok.segment_occluded,
+            "sample_rays": sk.sample_rays}
 
 
 def reset_launches():
@@ -917,6 +1014,13 @@ def reset_launches():
 
 def read_launches():
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def sampled(want):
+    """want with the sampler's launches: one for each K1 and K3 chunk
+    (every chunk these paths trace is sampled first)."""
+    return {**want, "sample_rays": want["occluded_splat"]
+            + want["segment_occluded"]}
 
 
 def phase_uniforms(dev, F, spt):
@@ -1148,9 +1252,9 @@ def phase_slice(dev, v, f, plane, steps, profile_dir=None):
         emit("slice_step", step=i, l2=l2, data_l2=data_l2, seconds=dt,
              path_samples_per_sec=rate, grad_max=float(grad.abs().max()))
     launches = read_launches()
-    want = {"occluded_splat": chunks * (steps + 1),
-            "backward_face_sums": chunks * steps,
-            "vertex_epilogue": chunks * steps, "segment_occluded": 0}
+    want = sampled({"occluded_splat": chunks * (steps + 1),
+                    "backward_face_sums": chunks * steps,
+                    "vertex_epilogue": chunks * steps, "segment_occluded": 0})
     require(launches == want, f"launch counts {launches}, expected {want}")
     emit("slice", scan=f"{SCAN}x{SCAN}", faces=F, spt=spt, chunks=chunks,
          rays_per_pass=L * F * spt, launches=launches,
@@ -1196,8 +1300,9 @@ def phase_ggx_slice(dev, v, f, plane, steps):
              path_samples_per_sec=2.0 * L * F * spt / dt,
              grad_max=float(grad.abs().max()))
     launches = read_launches()
-    want = {"occluded_splat": chunks * (steps + 1), "backward_face_sums": 0,
-            "vertex_epilogue": 0, "segment_occluded": 0}
+    want = sampled({"occluded_splat": chunks * (steps + 1),
+                    "backward_face_sums": 0, "vertex_epilogue": 0,
+                    "segment_occluded": 0})
     require(launches == want, f"launch counts {launches}, expected {want}")
     emit("ggx_slice", faces=F, spt=spt, chunks=chunks, launches=launches,
          step_seconds=per_step, gt_seconds=gt_s)
@@ -1320,9 +1425,9 @@ def phase_jitter(dev, v, f, plane, workdir):
              data_l2=float(loss.weighted_l2(gt, weight, t)),
              grad_max=float(g.abs().max()))
     launches = read_launches()
-    want = {"occluded_splat": 0, "backward_face_sums": 0,
-            "vertex_epilogue": 0,
-            "segment_occluded": 2 * chunks * len(kernels)}
+    want = sampled({"occluded_splat": 0, "backward_face_sums": 0,
+                    "vertex_epilogue": 0,
+                    "segment_occluded": 2 * chunks * len(kernels)})
     require(launches == want, f"launch counts {launches}, expected {want}")
     return launches
 
@@ -1404,9 +1509,10 @@ def phase_material(dev, workdir):
     require(abs(alpha - ALPHA_STAR) < abs(ALPHA0 - ALPHA_STAR),
             f"alpha went from {ALPHA0} to {alpha}, away from {ALPHA_STAR}")
     require(losses_s[-1] < losses_s[0], f"shape losses {losses_s} rise")
-    want = {"occluded_splat": chunks * (2 + ALPHA_STEPS + SHAPE_STEPS),
-            "backward_face_sums": 0, "vertex_epilogue": 0,
-            "segment_occluded": 0}
+    want = sampled({"occluded_splat": chunks * (2 + ALPHA_STEPS
+                                                + SHAPE_STEPS),
+                    "backward_face_sums": 0, "vertex_epilogue": 0,
+                    "segment_occluded": 0})
     require(launches == want, f"launch counts {launches}, expected {want}")
     return launches
 
@@ -1500,9 +1606,9 @@ def phase_loop(dev, workdir, rec, scene=SCENE, iters=LOOP_ITERS,
                        or min(spec.gt_sample_num, 200_000),
                        res * res, 16 if res >= 256 else 8)
     k2 = sum(r["chunks"] for r in steps) if spec.brdf == "lambertian" else 0
-    want = {"occluded_splat": gt + sum(r["chunks"] for r in steps),
-            "backward_face_sums": k2, "vertex_epilogue": k2,
-            "segment_occluded": sum(r["chunks"] for r in remeshes)}
+    want = sampled({"occluded_splat": gt + sum(r["chunks"] for r in steps),
+                    "backward_face_sums": k2, "vertex_epilogue": k2,
+                    "segment_occluded": sum(r["chunks"] for r in remeshes)})
     require(launches == want, f"launch counts {launches}, expected {want}")
     init = next(m for _, m in rec.lines if m.startswith("init mesh"))
     first = "loaded capture" if spec.kind == "real" else "creating GT"
@@ -1775,7 +1881,8 @@ def phase_nonconfocal(dev, v, f):
             "nonconfocal: the gradient is not finite and nonzero")
     want = {"occluded_splat": 0, "backward_face_sums": 0,
             "vertex_epilogue": 0,
-            "segment_occluded": -(-NC_PAIRS // nc._PAIRS_PER_BATCH)}
+            "segment_occluded": -(-NC_PAIRS // nc._PAIRS_PER_BATCH),
+            "sample_rays": 0}   # the shadow rays are not sampled per face
     require(launches == want, f"nonconfocal launches {launches}, expected "
             f"{want}")
     args, kwargs = seen["k3"]
@@ -2465,6 +2572,7 @@ def run(dev, steps, profile_dir=None):
     k2, epi = phase_k2(dev, v, f)
     phase_sync(dev, v, f)
     k3 = phase_k3(dev, v, f)
+    sampler = phase_sample_rays(dev)
     phase_uniforms(dev, f.shape[0], spt)
     phase_small(dev)
     phase_intensity(dev)
@@ -2528,6 +2636,11 @@ def run(dev, steps, profile_dir=None):
              launches=launches["segment_occluded"],
              launches_by_path=by_path("segment_occluded"), library_ms=None,
              **k3),
+        dict(name="sample_rays", route="cuda",
+             source=f"{pkg}/csrc/sample_rays.cu", replaces=None,
+             launches=launches["sample_rays"],
+             launches_by_path=by_path("sample_rays"), library_ms=None,
+             **sampler),
     ]
 
 

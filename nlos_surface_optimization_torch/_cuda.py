@@ -23,7 +23,8 @@ from typing import Dict, List
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-KERNELS = ("occluded_splat", "backward_face_sums", "segment_occluded")
+KERNELS = ("occluded_splat", "backward_face_sums", "segment_occluded",
+           "sample_rays")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 # -fmad=false: every product and sum is rounded on its own, as in the

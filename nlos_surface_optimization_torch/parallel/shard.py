@@ -30,8 +30,8 @@ import torch.distributed as dist
 from ..config import RenderConfig, check_backends
 from ..geometry.mesh import Mesh
 from ..render.api import (
-    _hierarchy,
     _padded_rows,
+    _prepare,
     _spt,
     inverse_rows,
     transient_rows,
@@ -93,13 +93,13 @@ def _local_shards(dmesh: SourceMesh, L: int):
 
 
 def _per_device(mesh: Mesh, devices, cfg: RenderConfig, key, mode=None):
-    """{device: (mesh, key, face hierarchy, vertex CSR)}, each built once a
-    call for every shard on that device."""
+    """{device: (mesh, key, (face hierarchy, face normals and areas),
+    vertex CSR)}, each built once a call for every shard on that device."""
     out = {}
     for d in devices:
         if d not in out:
             m = Mesh(*(x.to(d) for x in mesh))
-            out[d] = (m, key.to(d), _hierarchy(m, cfg),
+            out[d] = (m, key.to(d), _prepare(m, cfg),
                       None if mode is None else vertex_csr_for(m, cfg, mode))
     return out
 
@@ -143,11 +143,11 @@ def sharded_render_transient(mesh: Mesh, lighting, lighting_normal,
     state = _per_device(mesh, dmesh.devices, cfg, key)
     parts = []
     for s, d in shards:
-        m, k, hier, _ = state[d]
+        m, k, (hier, faces), _ = state[d]
         rows = slice(s * Ls, (s + 1) * Ls)
         parts.append(transient_rows(m, lit[rows].to(d), nrm[rows].to(d), k,
                                     cfg, spt, r, hier, alpha,
-                                    source_offset=s * Ls))
+                                    source_offset=s * Ls, faces=faces))
     return _gather_rows(parts, dmesh, L)
 
 
@@ -178,12 +178,13 @@ def sharded_inverse_render(mesh: Mesh, data, weight, lighting,
     state = _per_device(mesh, dmesh.devices, cfg, key, mode)
     ts, gs = [], []
     for s, d in shards:
-        m, k, hier, csr = state[d]
+        m, k, (hier, faces), csr = state[d]
         rows = slice(s * Ls, (s + 1) * Ls)
         # each shard starts its own sum: the fused backward adds in place
         t, g = inverse_rows(m, dat[rows].to(d), w[rows].to(d),
                             lit[rows].to(d), nrm[rows].to(d), k, cfg, spt,
-                            mode, alpha, hier, csr, source_offset=s * Ls)
+                            mode, alpha, hier, csr, source_offset=s * Ls,
+                            faces=faces)
         ts.append(t)
         gs.append(g)
     return _gather_rows(ts, dmesh, L), _reduce(gs, dmesh) / float(L)

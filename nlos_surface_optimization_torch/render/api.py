@@ -17,7 +17,8 @@ global index is given (each shard of parallel/shard.py is one).
 
 Sources are processed in chunks of cfg.source_chunk by a Python loop;
 on the card the kernels' view of the mesh (fused_kernels.face_hierarchy)
-is built once per call and handed to every chunk, as are the sampler's
+and the face normals and areas the sampler reads are built once per call
+and handed to every chunk (``_prepare``), as are the sampler's
 key and the jitter kernel (moved to the mesh's device once) and, for the
 fused backward, the vertex CSR of its epilogue
 (bwd_kernels.vertex_csr).  The ``*_host`` names are the same functions
@@ -31,11 +32,11 @@ visibility kernel) and splat eagerly at refine 1, as the JAX package does.
 
 Program spans (utils/timers.span; recorded only under torch.profiler):
 ``render.call`` around each render_transient, inverse render and
-render_intensity; inside it ``render.prepare`` (the face hierarchy and
-the vertex CSR, once a call) and, per chunk, ``render.sample`` and
-``render.k1`` or ``render.k3`` (core.py), ``render.smooth`` (the
-smoothing and the difference) and ``render.backward`` (K2 and its
-epilogue, or an eager backward).
+render_intensity; inside it ``render.prepare`` (the face hierarchy, the
+face normals and areas and the vertex CSR, once a call) and, per chunk,
+``render.sample`` and ``render.k1`` or ``render.k3`` (core.py),
+``render.smooth`` (the smoothing and the difference) and
+``render.backward`` (K2 and its epilogue, or an eager backward).
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from typing import Optional
 import torch
 
 from ..config import RenderConfig, check_backends
-from ..geometry.mesh import Mesh, vertex_normals
+from ..geometry.mesh import Mesh, face_normals_areas, vertex_normals
 from ..utils import timers
 from .bwd_kernels import VertexCSR, backward_chunk_fused, vertex_csr
 from .fused_kernels import FaceHierarchy, face_hierarchy
@@ -115,25 +116,29 @@ def _padded_rows(x, rows: int, device) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
 
 
-def _hierarchy(mesh: Mesh, cfg: RenderConfig) -> Optional[FaceHierarchy]:
-    """The kernels' view of the mesh, built once per call for every chunk;
-    None where no kernel reads it: on the CPU (the wrappers run their
-    plain versions) and with occl_backend 'jnp' or 'mxu'."""
+def _prepare(mesh: Mesh, cfg: RenderConfig):
+    """What every chunk of a call reads of the mesh, built once per call:
+    (the kernels' view of the mesh, (face normals [F,3], areas [F]) for
+    the sampler).  The view is None where no kernel reads it: on the CPU
+    (the wrappers run their plain versions) and with occl_backend 'jnp'
+    or 'mxu'."""
+    faces = face_normals_areas(mesh.v, mesh.f)
     if mesh.device.type != "cuda" or cfg.occl_backend in ("jnp", "mxu"):
-        return None
-    return face_hierarchy(mesh.v, mesh.f, mesh.f_valid)
+        return None, faces
+    return face_hierarchy(mesh.v, mesh.f, mesh.f_valid), faces
 
 
 def _trace_and_forward(mesh: Mesh, lc, nc_, key, cfg: RenderConfig, spt: int,
                        off: int, refine: int, hier: Optional[FaceHierarchy],
-                       alpha=None):
+                       alpha=None, faces=None):
     """(RayBatch, fine histogram) for one source chunk, through the fused
     kernel or the eager trace + splat pair (same semantics)."""
     if cfg.occl_backend in ("auto", "fused"):  # K1; the others: below
         return trace_forward_fused(mesh, lc, nc_, key, cfg, spt, refine,
-                                   source_offset=off, hier=hier, alpha=alpha)
+                                   source_offset=off, hier=hier, alpha=alpha,
+                                   faces=faces)
     rays = trace_chunk(mesh, lc, nc_, key, cfg, spt, source_offset=off,
-                       hier=hier)
+                       hier=hier, faces=faces)
     return rays, forward_chunk(rays, nc_, cfg, spt, refine, alpha=alpha)
 
 
@@ -149,24 +154,27 @@ def render_transient(mesh: Mesh, lighting, lighting_normal,
     r = cfg.bin_refine_resolution if refine is None else refine
     with timers.span("render.call"):
         with timers.span("render.prepare"):
-            hier = _hierarchy(mesh, cfg)
+            hier, faces = _prepare(mesh, cfg)
         t = transient_rows(mesh, _as_tensor(lighting, dev),
                            _as_tensor(lighting_normal, dev), key.to(dev), cfg,
-                           _spt(cfg, mesh), r, hier, alpha)
+                           _spt(cfg, mesh), r, hier, alpha, faces=faces)
     return t, pathlengths(cfg, dev)
 
 
 def transient_rows(mesh: Mesh, lighting, lighting_normal, key,
                    cfg: RenderConfig, spt: int, refine: int,
                    hier: Optional[FaceHierarchy], alpha=None,
-                   source_offset: int = 0) -> torch.Tensor:
+                   source_offset: int = 0, faces=None) -> torch.Tensor:
     """The smoothed transient [L, B] of the sources lighting [L, 3] (f32
     tensors on the mesh's device) whose first global index is
-    ``source_offset``, in chunks of cfg.source_chunk."""
+    ``source_offset``, in chunks of cfg.source_chunk; ``hier`` and
+    ``faces`` as ``_prepare`` gives them (faces computed a chunk when
+    None)."""
     lit, nrm, L, Lc, nc = _chunks(lighting, lighting_normal, cfg)
     fine = torch.cat([
         _trace_and_forward(mesh, lit[i], nrm[i], key, cfg, spt,
-                           source_offset + i * Lc, refine, hier, alpha)[1]
+                           source_offset + i * Lc, refine, hier, alpha,
+                           faces)[1]
         for i in range(nc)], dim=0)[:L]
     with timers.span("render.smooth"):
         return smooth_and_coarsen(fine, cfg.distance_resolution, refine,
@@ -186,11 +194,11 @@ def render_intensity(mesh: Mesh, lighting, lighting_normal,
         spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting,
                                                lighting_normal, cfg, key)
         with timers.span("render.prepare"):
-            hier = _hierarchy(mesh, cfg)
+            hier, faces = _prepare(mesh, cfg)
         out = None
         for i in range(nc):
             rays = trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
-                               source_offset=i * Lc, hier=hier)
+                               source_offset=i * Lc, hier=hier, faces=faces)
             part = intensity_chunk(rays, nrm[i], cfg, spt)
             out = part if out is None else out + part
     return out
@@ -218,23 +226,24 @@ def _fused_chunk_body(mesh: Mesh, lc, nc_, off: int, key, dat, w,
                       cfg: RenderConfig, spt: int,
                       hier: Optional[FaceHierarchy],
                       csr: Optional[VertexCSR], grad, mode: str = "vertex",
-                      alpha=None, jitter=None):
+                      alpha=None, jitter=None, faces=None):
     """(transient rows, running gradient + this chunk's gradient) for one
     source chunk: one trace serves the forward and the backward (the
     difference is row-local).  ``mode``: 'vertex' ([V,3]), 'albedo' or
     'alpha' (scalars), or 'jitter' ([V,3] under ``jitter`` = (weight,
     grad, offset): traced through ``trace_chunk``, splatted at refine 1
     and convolved).  The fused backward adds into grad in place on the
-    card; grad None starts the sum."""
+    card; grad None starts the sum.  ``faces``: the mesh's (face normals,
+    areas), as ``_prepare`` gives them (computed here when None)."""
     if mode == "jitter":
         jw, jg, joff = jitter
         rays = trace_chunk(mesh, lc, nc_, key, cfg, spt, source_offset=off,
-                           hier=hier)
+                           hier=hier, faces=faces)
         fine = forward_chunk(rays, nc_, cfg, spt, refine=1)
     else:
         refine = cfg.forward_refine
         rays, fine = _trace_and_forward(mesh, lc, nc_, key, cfg, spt, off,
-                                        refine, hier, alpha)
+                                        refine, hier, alpha, faces)
     with timers.span("render.smooth"):
         if mode == "jitter":
             transient = jitter_convolve(fine, jw, joff)
@@ -272,11 +281,12 @@ def vertex_csr_for(mesh: Mesh, cfg: RenderConfig,
 def inverse_rows(mesh: Mesh, data, weight, lighting, lighting_normal, key,
                  cfg: RenderConfig, spt: int, mode: str, alpha,
                  hier: Optional[FaceHierarchy], csr: Optional[VertexCSR],
-                 jitter=None, source_offset: int = 0):
+                 jitter=None, source_offset: int = 0, faces=None):
     """(transient [L,B], gradient summed over the chunks in chunk order,
     not yet divided by the source count) of the sources lighting [L, 3]
     (f32 tensors on the mesh's device) whose first global index is
-    ``source_offset``; data and weight are their rows [L, B]."""
+    ``source_offset``; data and weight are their rows [L, B]; ``hier``
+    and ``faces`` as ``_prepare`` gives them."""
     lit, nrm, L, Lc, nc = _chunks(lighting, lighting_normal, cfg)
     dev = mesh.device
     data_p = _padded_rows(data, nc * Lc, dev)
@@ -287,7 +297,8 @@ def inverse_rows(mesh: Mesh, data, weight, lighting, lighting_normal, key,
         t, grad = _fused_chunk_body(mesh, lit[i], nrm[i],
                                     source_offset + i * Lc, key,
                                     data_p[rows], weight_p[rows], cfg, spt,
-                                    hier, csr, grad, mode, alpha, jitter)
+                                    hier, csr, grad, mode, alpha, jitter,
+                                    faces)
         parts.append(t)
     return torch.cat(parts, dim=0)[:L], grad
 
@@ -302,12 +313,12 @@ def _inverse(mesh: Mesh, data, weight, lighting, lighting_normal,
     lighting = _as_tensor(lighting, dev)
     with timers.span("render.call"):
         with timers.span("render.prepare"):
-            hier = _hierarchy(mesh, cfg)
+            hier, faces = _prepare(mesh, cfg)
             csr = vertex_csr_for(mesh, cfg, mode)
         t, grad = inverse_rows(mesh, data, weight, lighting,
                                _as_tensor(lighting_normal, dev), key.to(dev),
                                cfg, _spt(cfg, mesh), mode, alpha, hier, csr,
-                               jitter)
+                               jitter, faces=faces)
     return t, grad / float(lighting.shape[0])
 
 
@@ -353,11 +364,11 @@ def vertex_gradient_bins(mesh: Mesh, lighting, lighting_normal,
     chunks in order; traced through ``trace_chunk``."""
     spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
                                            cfg, key)
-    hier = _hierarchy(mesh, cfg)
+    hier, faces = _prepare(mesh, cfg)
     out = None
     for i in range(nc):
         rays = trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
-                           source_offset=i * Lc, hier=hier)
+                           source_offset=i * Lc, hier=hier, faces=faces)
         part = vertex_gradient_bins_chunk(rays, mesh, nrm[i], vertex_num, cfg,
                                           spt)
         out = part if out is None else out + part
@@ -372,10 +383,11 @@ def render_transient_jitter(mesh: Mesh, lighting, lighting_normal,
     _lambertian_only(cfg, "the jitter render")
     spt, key, lit, nrm, L, Lc, nc = _setup(mesh, lighting, lighting_normal,
                                            cfg, key)
-    hier = _hierarchy(mesh, cfg)
+    hier, faces = _prepare(mesh, cfg)
     hist = torch.cat([
         forward_chunk(trace_chunk(mesh, lit[i], nrm[i], key, cfg, spt,
-                                  source_offset=i * Lc, hier=hier),
+                                  source_offset=i * Lc, hier=hier,
+                                  faces=faces),
                       nrm[i], cfg, spt, refine=1)
         for i in range(nc)], dim=0)[:L]
     t = jitter_convolve(hist, _as_tensor(jitter_weight, mesh.device),

@@ -21,8 +21,9 @@ its reciprocal, which can move a sample across a bin boundary.
 A chunk's trace records two program spans (utils/timers.span):
 ``render.sample``, everything before the visibility call (the draws, the
 ray setup, the skip mask and, for the fused kernel, the contribution with
-its BRDF), then ``render.k1`` (the fused kernel's wrapper) or
-``render.k3`` (the visibility query of ``trace_chunk``).
+its BRDF: sample_kernels.sample_rays, one kernel on the card), then
+``render.k1`` (the fused kernel's wrapper) or ``render.k3`` (the
+visibility query of ``trace_chunk``).
 """
 
 from __future__ import annotations
@@ -35,8 +36,7 @@ import torch
 
 from ..config import RenderConfig
 from ..geometry.intersect import segment_occluded, segment_occluded_mxu
-from ..geometry.mesh import Mesh, face_normals_areas, norm3, scatter_faces
-from ..geometry.sampling import stratified_barycoords
+from ..geometry.mesh import Mesh, scatter_faces
 from ..utils import timers
 from . import brdf as ggx
 from .kernels import correlate_rows, gaussian_kernel, grouped_gaussian_tables
@@ -76,103 +76,38 @@ def _dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
-def _sample_chunk(mesh: Mesh, lighting, key, cfg: RenderConfig, spt: int,
-                  source_offset: int):
-    """Stratified sampling + ray setup for one source chunk (no occlusion).
-
-    Returns (bary, dirs, hs, in_range, face_n, area, flat o/d/t/fid)."""
-    Lc = lighting.shape[0]
-    F = mesh.f.shape[0]
-    v1, v2, v3 = (mesh.v[mesh.f[:, k]] for k in range(3))
-    face_n, area = face_normals_areas(mesh.v, mesh.f)
-
-    bary = stratified_barycoords(key, Lc, F, spt, source_offset,
-                                 device=mesh.device)           # [Lc,F,spt,3]
-    p = (bary[..., 0:1] * v1[None, :, None, :]
-         + bary[..., 1:2] * v2[None, :, None, :]
-         + bary[..., 2:3] * v3[None, :, None, :])
-    o = lighting[:, None, None, :]
-    dvec = p - o
-    h = norm3(dvec)
-    hs = torch.clamp(h, min=1e-12)
-    dirs = dvec / hs[..., None]
-    in_range = (h >= cfg.bin_lower / 2.0) & (h <= cfg.bin_upper / 2.0)
-
-    R = Lc * F * spt
-    o_flat = o.expand(p.shape).reshape(R, 3)
-    d_flat = dirs.reshape(R, 3)
-    t_flat = hs.reshape(R)
-    fid = torch.arange(F, dtype=torch.int32, device=mesh.device)[None, :, None]
-    fid = fid.expand(Lc, F, spt).reshape(R)
-    return bary, dirs, hs, in_range, face_n, area, o_flat, d_flat, t_flat, fid
-
-
-def _interp_attrs(mesh: Mesh, bary, dirs, face_n, cfg: RenderConfig):
-    """(shading normal, interpolated albedo) per ray; 'vn' normals are
-    interpolated and NOT renormalized, as in the reference."""
-    if cfg.normal == "vn":
-        n1, n2, n3 = (mesh.vn[mesh.f[:, k]] for k in range(3))
-        normal = (bary[..., 0:1] * n1[None, :, None, :]
-                  + bary[..., 1:2] * n2[None, :, None, :]
-                  + bary[..., 2:3] * n3[None, :, None, :])
-    else:
-        normal = face_n[None, :, None, :].expand(dirs.shape)
-    a1, a2, a3 = (mesh.albedo[mesh.f[:, k]] for k in range(3))
-    alb = (bary[..., 0] * a1[None, :, None]
-           + bary[..., 1] * a2[None, :, None]
-           + bary[..., 2] * a3[None, :, None])
-    return normal, alb
-
-
-def _occl_skip_mask(dirs, normal, face_n, lighting_normal, pre_valid):
-    """Rays whose contribution is exactly zero in every consumer (forward
-    splat, backward, intensity pass), so their occlusion is irrelevant:
-      forward   max(0, cos2*cos3m)   -> cos2*cos3m <= 0
-      intensity max(0, cos2*cos3f)   -> cos2*cos3f <= 0
-      backward  separate clamps      -> cos2 <= 0 or cos3m <= 0."""
-    cos2 = _dot(lighting_normal[:, None, None, :], dirs)
-    cos3m = -_dot(normal, dirs)
-    cos3f = -_dot(face_n[None, :, None, :], dirs)
-    dead = ((cos2 * cos3m <= 0.0) & (cos2 * cos3f <= 0.0)
-            & ((cos2 <= 0.0) | (cos3m <= 0.0)))
-    return ~pre_valid | dead
-
-
-def _pre_valid(mesh: Mesh, in_range, area):
-    return mesh.f_valid[None, :, None] & in_range & (area > 0)[None, :, None]
-
-
 def occlusion_inputs(mesh: Mesh, lighting, lighting_normal, key,
-                     cfg: RenderConfig, spt: int, source_offset: int = 0):
+                     cfg: RenderConfig, spt: int, source_offset: int = 0,
+                     faces=None):
     """(RayBatch before occlusion, args, kwargs) of the visibility query
     for one source chunk: ``segment_occluded(*args, **kwargs)``.  Rays
     whose contribution is zero in every consumer get t_self = 0 and skip
-    the test."""
-    (bary, dirs, hs, in_range, face_n, area,
-     o_flat, d_flat, t_flat, fid) = _sample_chunk(
-        mesh, lighting, key, cfg, spt, source_offset)
-    normal, alb = _interp_attrs(mesh, bary, dirs, face_n, cfg)
-    pre_valid = _pre_valid(mesh, in_range, area)
-    skip = _occl_skip_mask(dirs, normal, face_n, lighting_normal, pre_valid)
-    t_flat = torch.where(skip.reshape(-1), 0.0, t_flat)
-    rays_pre = RayBatch(dirs=dirs, h=hs, normal=normal, albedo=alb,
-                        bary=bary, valid=pre_valid, area=area, face_n=face_n)
-    args = (o_flat.contiguous(), d_flat, t_flat, fid, mesh.v, mesh.f,
-            mesh.f_valid)
-    return rays_pre, args, dict(t_rel=cfg.occl_t_rel, t_min=cfg.occl_t_min)
+    the test.  The sampling and ray setup is sample_kernels.sample_rays
+    (one kernel on the card); ``faces``: the mesh's (face_n, area), once
+    a render, computed here when None."""
+    from .sample_kernels import sample_rays
+
+    c = sample_rays(mesh, lighting, lighting_normal, key.to(mesh.device),
+                    cfg, spt, source_offset, faces)
+    args = (c.o, c.rays.dirs.reshape(-1, 3), c.t_self, c.fid, mesh.v,
+            mesh.f, mesh.f_valid)
+    return c.rays, args, dict(t_rel=cfg.occl_t_rel, t_min=cfg.occl_t_min)
 
 
 def trace_chunk(mesh: Mesh, lighting, lighting_normal, key, cfg: RenderConfig,
-                spt: int, source_offset: int = 0, hier=None) -> RayBatch:
+                spt: int, source_offset: int = 0, hier=None,
+                faces=None) -> RayBatch:
     """Sample every face from every source in the chunk and run the
     visibility query: the standalone visibility kernel
     (render/occl_kernels.segment_occluded, its plain version on the CPU;
     ``hier`` the mesh's fused_kernels.face_hierarchy, built per call when
     None), or with occl_backend 'jnp' the eager divide-based
-    segment_occluded, with 'mxu' its matrix-product form."""
+    segment_occluded, with 'mxu' its matrix-product form.  ``faces`` as
+    for occlusion_inputs."""
     with timers.span("render.sample"):
         rays_pre, args, kwargs = occlusion_inputs(
-            mesh, lighting, lighting_normal, key, cfg, spt, source_offset)
+            mesh, lighting, lighting_normal, key, cfg, spt, source_offset,
+            faces)
     with timers.span("render.k3"):
         if cfg.occl_backend == "jnp":
             occ = segment_occluded(*args, **kwargs)
@@ -205,29 +140,32 @@ def _contrib_and_bins(rays: RayBatch, lighting_normal, cfg: RenderConfig,
 
 def splat_inputs(mesh: Mesh, lighting, lighting_normal, key,
                  cfg: RenderConfig, spt: int, refine: int,
-                 source_offset: int = 0, alpha=None):
+                 source_offset: int = 0, alpha=None, faces=None):
     """(RayBatch before occlusion, args, kwargs) of the fused occlusion +
     splat call for one source chunk: ``occluded_splat(*args, **kwargs)``.
 
     The contribution (with the BRDF, GGX at roughness ``alpha``) is
     computed before occlusion (the kernel zeroes occluded rays); rays
     whose contribution is zero everywhere get t_self = 0 and skip the
-    visibility test."""
-    rays_pre, (o, d, t, fid, v, f, f_valid), kwargs = occlusion_inputs(
-        mesh, lighting, lighting_normal, key, cfg, spt, source_offset)
-    contrib, bin_f = _contrib_and_bins(rays_pre, lighting_normal, cfg, spt,
-                                       refine, alpha)
-    args = (o, d, t, fid, contrib.reshape(-1), bin_f.reshape(-1), v, f,
-            f_valid, lighting.shape[0], cfg.num_bins * refine)
-    return rays_pre, args, kwargs
+    visibility test.  Sampling, ray setup and contribution are one
+    sample_kernels.sample_rays call; ``faces`` as for occlusion_inputs."""
+    from .sample_kernels import sample_rays
+
+    c = sample_rays(mesh, lighting, lighting_normal, key.to(mesh.device),
+                    cfg, spt, source_offset, faces, refine, alpha)
+    args = (c.o, c.rays.dirs.reshape(-1, 3), c.t_self, c.fid, c.contrib,
+            c.bin_f, mesh.v, mesh.f, mesh.f_valid, lighting.shape[0],
+            cfg.num_bins * refine)
+    return c.rays, args, dict(t_rel=cfg.occl_t_rel, t_min=cfg.occl_t_min)
 
 
 def trace_forward_fused(mesh: Mesh, lighting, lighting_normal, key,
                         cfg: RenderConfig, spt: int, refine: int,
-                        source_offset: int = 0, hier=None, alpha=None):
+                        source_offset: int = 0, hier=None, alpha=None,
+                        faces=None):
     """(RayBatch, fine histogram [Lc, num_bins*refine]) through the fused
     occlusion + splat kernel (render/fused_kernels.occluded_splat; ``hier``
-    as for trace_chunk).
+    and ``faces`` as for trace_chunk).
 
     Same semantics as trace_chunk + forward_chunk."""
     from .fused_kernels import occluded_splat
@@ -235,7 +173,7 @@ def trace_forward_fused(mesh: Mesh, lighting, lighting_normal, key,
     with timers.span("render.sample"):
         rays_pre, args, kwargs = splat_inputs(mesh, lighting, lighting_normal,
                                               key, cfg, spt, refine,
-                                              source_offset, alpha)
+                                              source_offset, alpha, faces)
     with timers.span("render.k1"):
         occ, hist = occluded_splat(*args, **kwargs, hier=hier)
         rays = rays_pre._replace(

@@ -16,6 +16,7 @@ from nlos_surface_optimization_torch.render import bwd_kernels as bk
 from nlos_surface_optimization_torch.render import core
 from nlos_surface_optimization_torch.render import fused_kernels as fk
 from nlos_surface_optimization_torch.render import occl_kernels as ok
+from nlos_surface_optimization_torch.render import sample_kernels as sk
 
 pytestmark = pytest.mark.gpu
 
@@ -293,6 +294,94 @@ def test_uniforms_on_the_card_equal_the_cpu(cuda):
     S_c, T_c = sampling.uniforms_for(k, 5, 37, 7, source_offset=4095,
                                      device="cpu")
     assert torch.equal(S.cpu(), S_c) and torch.equal(T.cpu(), T_c)
+
+
+# sample_rays cases: the descent's chunk (64 sources x 23,762 faces, spt 1),
+# the GT render's samples a face (spt 9), 'vn' normals, GGX at a roughness
+# given as a number and as a 0-dim tensor on the card, the contribution-free
+# form of trace_chunk, a chunk past the first, zero-normal padding sources,
+# and zero-area and padding (f_valid False) faces
+SAMPLE_CASES = {
+    "descent": dict(n=110, Lc=64, spt=1),
+    "gt_spt9": dict(n=40, Lc=9, spt=9),
+    "vn": dict(normal="vn"),
+    "ggx_float": dict(brdf="ggx", alpha=0.2),
+    "ggx_tensor": dict(brdf="ggx", alpha="tensor"),
+    "trace": dict(refine=None),
+    "offset": dict(offset=4095),
+    "padded_sources": dict(pad_sources=5),
+    "degenerate": dict(degenerate=True),
+}
+
+
+@pytest.mark.parametrize("case", list(SAMPLE_CASES))
+def test_sample_rays_kernel_matches_plain(cuda, case):
+    """Every output of the sampler kernel equals its plain version's on the
+    card bit for bit; two launches are bit-identical; one launch a call."""
+    p = dict(n=12, Lc=16, spt=3, normal="fn", brdf="lambertian", alpha=None,
+             refine=10, offset=0, pad_sources=0, degenerate=False)
+    p.update(SAMPLE_CASES[case])
+    v, f = _bumpy(p["n"])
+    if p["degenerate"]:
+        f[5, 1] = f[5, 0]          # a zero edge: area exactly 0
+    mesh = pt.make_mesh(v, f, device=cuda,
+                        pad_f=f.shape[0] + (7 if p["degenerate"] else 0))
+    if p["normal"] == "vn":
+        mesh = mesh._replace(vn=pt.vertex_normals(mesh.v, mesh.f,
+                                                  mesh.f_valid))
+    cfg = pt.RenderConfig(num_samples=20000, num_bins=1200,
+                          distance_resolution=1.2e-3, brdf=p["brdf"],
+                          normal=p["normal"])
+    lighting, lnormal = (torch.from_numpy(x[:p["Lc"]]).to(cuda)
+                         for x in pt.make_confocal_scan(64))
+    if p["pad_sources"]:
+        lighting[-p["pad_sources"]:] = 0.0
+        lnormal[-p["pad_sources"]:] = 0.0
+    alpha = (torch.tensor(0.2, device=cuda) if p["alpha"] == "tensor"
+             else p["alpha"])
+    key = pt.key(2**40 + 5).to(cuda)
+    faces = pt.face_normals_areas(mesh.v, mesh.f)
+    args = (mesh, lighting, lnormal, key, cfg, p["spt"], p["offset"], faces,
+            p["refine"], alpha)
+    before = sk.sample_rays.launches
+    got, again = sk.sample_rays(*args), sk.sample_rays(*args)
+    want = sk.sample_rays_plain(*args)
+    torch.cuda.synchronize()
+    assert sk.sample_rays.launches - before == 2
+    fields = dict(got.rays._asdict(), o=got.o, t_self=got.t_self,
+                  fid=got.fid, contrib=got.contrib, bin_f=got.bin_f)
+    for name, x in fields.items():
+        y = (getattr(want.rays, name) if name in want.rays._fields
+             else getattr(want, name))
+        z = (getattr(again.rays, name) if name in again.rays._fields
+             else getattr(again, name))
+        if p["refine"] is None and name in ("contrib", "bin_f"):
+            assert x is None and y is None and z is None
+            continue
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        bad = int((x != y).sum()) if x.dtype == torch.bool else int(
+            (x.view(torch.int32) != y.contiguous().view(torch.int32)).sum())
+        assert bad == 0, f"{name}: {bad} of {x.numel()} differ"
+        assert torch.equal(x, z), name
+    assert bool(got.rays.valid.any()) and bool((got.t_self == 0).any())
+    if p["refine"] is not None:
+        assert float(got.contrib.max()) > 0
+    if p["degenerate"]:
+        assert not bool(got.rays.valid[:, 5].any())
+        assert not bool(got.rays.valid[:, f.shape[0]:].any())
+
+
+@pytest.mark.parametrize("brdf", ["lambertian", "ggx"])
+def test_inverse_render_launches_the_sampler_once_a_chunk(cuda, brdf):
+    v, f = _bumpy()
+    lighting, lnormal = pt.make_confocal_scan(4)
+    cfg = pt.RenderConfig(num_samples=400, num_bins=300,
+                          distance_resolution=5e-3, source_chunk=3, brdf=brdf)
+    data = (np.random.RandomState(1).rand(16, 300) * 1e-3).astype(np.float32)
+    before = sk.sample_rays.launches
+    pt.inverse_render(pt.make_mesh(v, f, device=cuda), data,
+                      np.ones_like(data), lighting, lnormal, cfg, pt.key(3))
+    assert sk.sample_rays.launches - before == -(-16 // 3)
 
 
 def _mixed_rays(v, f, n, seed=0):
