@@ -8,6 +8,10 @@ field), ``chunk_ray_cap`` (rays a source chunk may hold), ``warm_steps``,
 ``trace_steps``, ``check`` (the sample sizes), and optionally ``normal``
 ('fn' or 'vn') and ``testing_flag`` (0 adds the normal-derivative term
 in 'vn' shading), the shading the descent renders with.
+
+The timed path renders through ``api.inverse_render`` (``ENTRY``, which
+the fault tests replace); ``tiny`` is the cell at a size a CPU test
+holds, and ``FAULTS`` the faults that its tests plant.
 """
 
 from __future__ import annotations
@@ -27,6 +31,21 @@ from nlos_surface_optimization_torch.render import regularizers
 
 from gpu_bench.harness import scene
 from gpu_bench.harness.recorder import Recorder, render_shape, shading, sync
+
+ENTRY = (api, "inverse_render")
+FAULTS = ("unchanged", "half_batch", "altered_answer")
+TEST_SECONDS = 2.0   # a CPU test's window
+
+
+def tiny(config: dict, traffic: dict):
+    """(config, traffic) at a size a CPU test holds: a 6x6 scan, 2,000
+    samples, a 10x10 height field, one warm-up step, 8 rows and
+    vertices checked."""
+    c = dict(config, scan_resolution=6, sample_num=2000, gt_sample_num=4000,
+             source_chunk=8)
+    t = dict(traffic, surface=dict(traffic["surface"], n=10), warm_steps=1,
+             check={"rows": 8, "vertices": 8, "faces": 0})
+    return c, t
 
 
 def render_config(c: dict, t: dict, faces: int, samples: int, cap: int):
@@ -51,12 +70,32 @@ def gt_chunk(c: dict, faces: int, samples: int, cap: int) -> int:
 
 
 class Driver:
-    """Fixed-topology descent on one card."""
+    """Fixed-topology descent on the first of the cell's ``devices``."""
 
-    def __init__(self, config: dict, traffic: dict, seed: int, device):
+    def __init__(self, config: dict, traffic: dict, seed: int, devices):
         self.c, self.tr, self.seed = config, traffic, int(seed)
-        self.dev = torch.device(device)
+        self.devices = [torch.device(d) for d in devices]
+        self.dev = self.devices[0]
         self.last = None
+
+    def render_gt(self, gt_mesh, cfg_gt):
+        """The GT transient, unsmoothed (refine 1)."""
+        gt, _ = api.render_transient(gt_mesh, self.lighting, self.lnormal,
+                                     cfg_gt, self.key, refine=1,
+                                     alpha=self.c.get("gt_alpha"))
+        return gt
+
+    def inverse(self, m):
+        """(transient, vertex gradient) of the mesh ``m``."""
+        tr, g, _ = api.inverse_render(m, self.gt, self.weight, self.lighting,
+                                      self.lnormal, self.cfg, self.key,
+                                      alpha=self.c.get("alpha"))
+        return tr, g
+
+    def render_shapes(self, m):
+        """The sizes the kernels of one ``inverse`` call see."""
+        return [render_shape("inverse", m, self.cfg, self.lighting.shape[0],
+                             m.f.shape[0])]
 
     def setup(self):
         c, t, dev = self.c, self.tr, self.dev
@@ -77,10 +116,7 @@ class Driver:
         self.lighting = torch.from_numpy(lit).to(dev)
         self.lnormal = torch.from_numpy(ln).to(dev)
         gt_mesh = pt.make_mesh(v_gt, f, device=dev)
-        gt, _ = api.render_transient(gt_mesh, self.lighting, self.lnormal,
-                                     cfg_gt, self.key, refine=1,
-                                     alpha=c.get("gt_alpha"))
-        self.gt = gt.contiguous()
+        self.gt = self.render_gt(gt_mesh, cfg_gt).contiguous()
         t1 = time.perf_counter()
         self.weight = lossmod.create_weighting_function(self.gt,
                                                         float(c["gamma"]))
@@ -104,7 +140,7 @@ class Driver:
         warm = Recorder()
         for _ in range(int(t["warm_steps"])):
             self.step(warm)
-        sync(dev)
+        sync(self.devices)
         self.setup_phases = [("gt", t1 - t0),
                              ("warm", time.perf_counter() - t1)]
 
@@ -117,14 +153,10 @@ class Driver:
                       weight_flag=self.first, lr=self.lr, t=self.t,
                       l2_first=None)
         if rec.shapes:
-            rec.renders.append(render_shape(
-                "inverse", m, self.cfg, self.lighting.shape[0],
-                m.f.shape[0]))
-        tr, g, _ = api.inverse_render(m, self.gt, self.weight, self.lighting,
-                                      self.lnormal, self.cfg, self.key,
-                                      alpha=self.c.get("alpha"))
+            rec.renders.extend(self.render_shapes(m))
+        tr, g = self.inverse(m)
         if rec.sync:
-            sync(self.dev)
+            sync(self.devices)
         t_r = time.perf_counter()
         rec.span("inverse_render", t0, t_r)
         sval, sgrad = regularizers.normal_smoothing(m.v, m.f, m.f_valid,

@@ -9,6 +9,10 @@ height field), ``gt_shards`` (create_gt's shards), ``lct_threshold``
 (of the LCT albedo's peak, for the init mesh), ``steps_per_episode``,
 ``warm_steps`` (at most; the warm-up ends with the first remesh),
 ``trace_steps``, ``check`` (the sample sizes).
+
+The timed path renders through ``api.inverse_render`` (``ENTRY``, which
+the fault tests replace); ``tiny`` is the cell at a size a CPU test
+holds, and ``FAULTS`` the faults that its tests plant.
 """
 
 from __future__ import annotations
@@ -31,6 +35,22 @@ from nlos_surface_optimization_torch.render import api
 
 from gpu_bench.harness import scene
 from gpu_bench.harness.recorder import Recorder, render_shape, shading, sync
+
+ENTRY = (api, "inverse_render")
+FAULTS = ("unchanged", "half_batch", "altered_answer")
+TEST_SECONDS = 8.0   # a CPU test's window: it holds a remesh
+
+
+def tiny(config: dict, traffic: dict):
+    """(config, traffic) at a size a CPU test holds: an 8x8 scan, 2,000
+    samples, an 8x8 stand-in surface, 8 rows, vertices and faces
+    checked.  Every third step plateaus, so the warm-up (as the cell's
+    does) and a short window remesh and cull, however slow the host."""
+    c = dict(config, scan_resolution=8, sample_num=2000, gt_sample_num=4000,
+             source_chunk=8, loss_epsilon=1.0)
+    t = dict(traffic, surface=dict(traffic["surface"], n=8), warm_steps=4,
+             check={"rows": 8, "vertices": 8, "faces": 8})
+    return c, t
 
 
 def fallback_surface(s: dict, lower, upper):
@@ -114,7 +134,7 @@ class Probes:
                 "intensity", mesh, cfg, lighting.shape[0], s.f.shape[0]))
         out = self._intensity(mesh, lighting, lnormal, cfg, key)
         if rec.sync:
-            sync(d.dev)
+            sync(d.devices)
         rec.span("cull", t0, time.perf_counter())
         d.last_cull = dict(mesh=mesh, Fv=s.f.shape[0], V=s.v.shape[0],
                            cfg=cfg, intensity=out)
@@ -122,11 +142,13 @@ class Probes:
 
 
 class Driver:
-    """Episodes of ``steps_per_episode`` outer-loop steps on one card."""
+    """Episodes of ``steps_per_episode`` outer-loop steps on the first of
+    the cell's ``devices``."""
 
-    def __init__(self, config: dict, traffic: dict, seed: int, device):
+    def __init__(self, config: dict, traffic: dict, seed: int, devices):
         self.c, self.tr, self.seed = config, traffic, int(seed)
-        self.dev = torch.device(device)
+        self.devices = [torch.device(d) for d in devices]
+        self.dev = self.devices[0]
         self.last = self.last_cull = None
         self.rec = Recorder()
         self.probes = Probes(self)
@@ -222,7 +244,7 @@ class Driver:
         tr, g, pl = api.inverse_render(mesh, data, w, self.loop.lighting,
                                        self.loop.lnormal, cfg, k)
         if rec.sync:
-            sync(self.dev)
+            sync(self.devices)
         rec.span("inverse_render", t0, time.perf_counter())
         self._pending = dict(
             mesh=mesh, V=s.v.shape[0], Fv=s.f.shape[0], cfg=cfg,

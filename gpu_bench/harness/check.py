@@ -213,10 +213,14 @@ def moving(grad, floor: float = 1e-3):
 
 
 def _update_gap(a, b, keep):
+    if not bool(keep.any()):   # no finite gradient to keep: fails
+        return float("nan")
     return float((a - b).norm(dim=1)[keep].max() / b.norm(dim=1).max())
 
 
 def _update_median_gap(a, b, keep):
+    if not bool(keep.any()):
+        return float("nan")
     n = b.norm(dim=1)
     return float(((a - b).norm(dim=1) / torch.clamp(n, min=1e-300))[
         keep].median())

@@ -1,5 +1,9 @@
 """One run of one cell: set-up, the timed window, (with --trace 1) the
-spans and a traced segment, the check, and the result line."""
+spans and a traced segment, the check, and the result line.
+
+A cell on more than one card runs as one process over all its cards: the
+driver gets them as its ``devices``, and the harness synchronizes, traces
+and reads the memory of each."""
 
 from __future__ import annotations
 
@@ -11,7 +15,7 @@ import time
 import torch
 
 from . import check, spec, trace
-from .recorder import Recorder, sync
+from .recorder import Recorder, cards, sync
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "nlos_surface_optimization_tpu")
 
@@ -28,15 +32,30 @@ def say(msg: str) -> None:
 
 class Context:
     """What a metric reader reads: the window's iterations and spans, the
-    loop's remeshes, the traced segment and the cell's settings."""
+    loop's remeshes, the traced segment, the cell's settings and the
+    indices of its cards."""
 
-    def __init__(self, cell, setup_s):
-        self.cell, self.setup_s = cell, setup_s
+    def __init__(self, cell, setup_s, cards):
+        self.cell, self.setup_s, self.cards = cell, setup_s, cards
         self.window_s = 0.0
         self.iterations, self.spans = [], []
         self.events, self.renders, self.trace_spans = None, [], []
         self.trace_t0 = self.trace_t1 = 0.0
         self.trace_iterations = 0
+
+
+def cell_devices(chips: int, kind: str = "cuda"):
+    """The cell's cards: cuda:0 ... cuda:chips-1, or in a CPU test
+    ['cpu'] * chips."""
+    if kind == "cpu":
+        return [torch.device("cpu")] * chips
+    return [torch.device(kind, i) for i in range(chips)]
+
+
+def memory_peak(devices) -> int:
+    """The largest peak of allocated memory over the cell's cards."""
+    return max((torch.cuda.max_memory_allocated(d) for d in cards(devices)),
+               default=0)
 
 
 def _device_info(dev, count, peak):
@@ -61,15 +80,16 @@ def run(args, t_start: float) -> int:
         say(f"{cell.name} needs {cell.chips} CUDA device(s); found "
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 2
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    return _run(args, cell, dev, t_start)
+    devices = cell_devices(cell.chips)
+    torch.cuda.set_device(devices[0])
+    return _run(args, cell, devices, t_start)
 
 
-def _run(args, cell, dev, t_start) -> int:
-    driver = spec.driver(cell.config, cell.traffic, args.seed, dev)
+def _run(args, cell, devices, t_start) -> int:
+    dev, gpus = torch.device(devices[0]), cards(devices)
+    driver = spec.driver(cell.config, cell.traffic, args.seed, devices)
     driver.setup()
-    sync(dev)
+    sync(devices)
     # what set-up built stays: the collector's full passes in the window
     # then scan only what the window makes
     gc.collect()
@@ -77,30 +97,29 @@ def _run(args, cell, dev, t_start) -> int:
     setup_s = time.perf_counter() - t_start
     say("set-up seconds: " + " ".join(
         f"{n} {s:.2f}" for n, s in getattr(driver, "setup_phases", ())))
-    ctx = Context(cell, setup_s)
+    ctx = Context(cell, setup_s, [d.index for d in gpus])
     rec = Recorder(sync=bool(args.trace))
     ctx.window_s = run_window(driver, args.seconds, rec)
     ctx.iterations, ctx.spans = rec.iterations, rec.spans
-    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-            else 0)
+    peak = memory_peak(devices)
     busy = None
     if args.trace:
         seg_rec = Recorder(shapes=True)
         driver.begin_segment()
-        with trace.Segment(dev) as seg:
+        with trace.Segment(gpus) as seg:
             for _ in range(int(cell.traffic["trace_steps"])):
                 driver.step(seg_rec)
         ctx.events, ctx.renders = seg.events, seg_rec.renders
         ctx.trace_spans = seg_rec.spans
         ctx.trace_t0, ctx.trace_t1 = seg.t0, seg.t1
         ctx.trace_iterations = len(seg_rec.iterations)
-        busy = trace.busy_seconds(seg.events, seg.t0, seg.t1)
+        busy = trace.busy_per_card(seg.events, seg.t0, seg.t1, ctx.cards)
     inputs = driver.check_inputs()
     driver.release()
     del driver
     gc.unfreeze()
     gc.collect()
-    if dev.type == "cuda":
+    if gpus:
         torch.cuda.empty_cache()
     values = {k: v[0] for k, v in check.numbers(
         inputs, cell.config, cell.traffic["check"], args.seed, dev).items()}
@@ -120,10 +139,11 @@ def _run(args, cell, dev, t_start) -> int:
     device = _device_info(dev, cell.chips, peak)
     brk = None
     if args.trace:
-        device["busy_s"] = busy
+        device["busy_s"] = trace.mean_busy_seconds(busy)
+        device["busy_s_per_card"] = busy
         device["window_s"] = ctx.trace_t1 - ctx.trace_t0
         brk = trace.breakdown(ctx.events, ctx.trace_t0, ctx.trace_t1,
-                              ctx.trace_spans)
+                              ctx.trace_spans, ctx.cards)
     line = result_line(correct and failed == 0, attempted, failed, metrics,
                        device, brk, rows)
     for n, v, lim in rows:

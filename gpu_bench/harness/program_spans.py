@@ -109,15 +109,21 @@ def idle_by_span(events, t0, t1, spans) -> dict:
 
 def idle_ms_per_iteration(ctx, name):
     """The idle ms under ``name`` (as the innermost program span) over the
-    segment's iterations, or None where the program records no spans.
-    The sweep runs once a context."""
+    segment's iterations, the mean over the cell's cards, or None where
+    the program records no spans.  The sweep runs once a card a
+    context."""
     spans = segment_spans(ctx)
     if spans is None:
         return None
     idle = getattr(ctx, "_idle_by_program_span", None)
     if idle is None:
-        idle = idle_by_span(ctx.events, ctx.trace_t0, ctx.trace_t1,
-                            [(s.name, s.t0, s.t1) for s in spans])
+        idle = defaultdict(float)
+        named = [(s.name, s.t0, s.t1) for s in spans]
+        for c in ctx.cards:
+            for k, v in idle_by_span(trace.on_card(ctx.events, c),
+                                     ctx.trace_t0, ctx.trace_t1,
+                                     named).items():
+                idle[k] += v / len(ctx.cards)
         ctx._idle_by_program_span = idle
     if not any(s.name == name for s in spans):
         return None

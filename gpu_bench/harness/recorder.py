@@ -9,9 +9,9 @@ import torch
 
 class Recorder:
     """Iterations of a window, host spans and, in a traced segment, the
-    shapes of every render.  ``sync``: synchronize the device at span
-    ends, so that spans time the device's work (the traced run's window
-    only)."""
+    shapes of every render.  ``sync``: synchronize every card of the cell
+    at span ends, so that spans time the cards' work (the traced run's
+    window only)."""
 
     def __init__(self, sync: bool = False, shapes: bool = False):
         self.sync, self.shapes = sync, shapes
@@ -21,9 +21,17 @@ class Recorder:
         self.spans.append((name, t0, t1))
 
 
-def sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def cards(devices):
+    """The distinct CUDA devices among ``devices``, in order (a card that
+    holds several virtual shards once)."""
+    return [d for d in dict.fromkeys(torch.device(x) for x in devices)
+            if d.type == "cuda"]
+
+
+def sync(devices):
+    """Wait for every card among ``devices``."""
+    for d in cards(devices):
+        torch.cuda.synchronize(d)
 
 
 def shading(cfg) -> dict:

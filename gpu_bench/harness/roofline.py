@@ -2,7 +2,10 @@
 for the work of every launch in the traced segment (the larger of its
 operations over the fp32 peak and its bytes over the HBM peak, each
 input byte read once and each output byte written once), over the
-device time of the kernels that did it."""
+device time of the kernels that did it.  On more than one card the
+formula stays: the kernels' seconds summed over every card, against the
+bound of every chunk that any card ran, so a share reads as one card's
+would if the same chunks ran on one card."""
 
 from . import trace
 

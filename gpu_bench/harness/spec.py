@@ -4,7 +4,9 @@
   gpu_bench/traffic/<traffic>.json   the traffic mix: its ``kind`` and
                                      that kind's parameters
   gpu_bench/drivers/<kind>.py        the generator of a traffic kind
-  gpu_bench/metrics/<metric>.py      one reader per metric
+  gpu_bench/metrics/<metric>.py      one reader per metric (a name such
+                                     as ``k1_roofline.ggx`` is its file's
+                                     name too)
   gpu_bench/limits/<workload>.json   the limit of each number compared
 """
 
@@ -12,8 +14,10 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import importlib.util
 import json
 import os
+import sys
 from typing import List
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,12 +75,25 @@ def cell(w: dict, bench: dict) -> Cell:
         end_to_end=e2e, per_layer=per_layer)
 
 
-def driver(config: dict, traffic: dict, seed: int, device):
-    """The ``Driver`` of gpu_bench/drivers/<kind>.py for a traffic mix."""
-    mod = importlib.import_module(f"gpu_bench.drivers.{traffic['kind']}")
-    return mod.Driver(config, traffic, seed, device)
+def kind(traffic: dict):
+    """The module gpu_bench/drivers/<kind>.py of a traffic mix."""
+    return importlib.import_module(f"gpu_bench.drivers.{traffic['kind']}")
+
+
+def driver(config: dict, traffic: dict, seed: int, devices):
+    """The ``Driver`` of a traffic mix's kind over the cell's ``devices``
+    (one a card, in order)."""
+    return kind(traffic).Driver(config, traffic, seed, devices=devices)
 
 
 def reader(metric: str):
-    """The ``read(ctx)`` of gpu_bench/metrics/<metric>.py."""
-    return importlib.import_module(f"gpu_bench.metrics.{metric}").read
+    """The ``read(ctx)`` of gpu_bench/metrics/<metric>.py, loaded from its
+    file, since a metric split by cells has a dot in its name."""
+    name = "gpu_bench.metrics." + metric.replace(".", "__")
+    if name not in sys.modules:
+        found = importlib.util.spec_from_file_location(
+            name, os.path.join(BENCH, "metrics", metric + ".py"))
+        module = importlib.util.module_from_spec(found)
+        sys.modules[name] = module
+        found.loader.exec_module(module)
+    return sys.modules[name].read

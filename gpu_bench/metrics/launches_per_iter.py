@@ -1,5 +1,6 @@
 """Device kernel launches per iteration in the traced segment, counted
-from the trace's kernel events (copies and fills left out)."""
+from the trace's kernel events on every card (copies and fills left
+out)."""
 
 from gpu_bench.harness import trace
 

@@ -55,14 +55,18 @@ def update_worst(x, cell, seed, device) -> dict:
             float(e.max()))))
 
 
-def read_seed(cell, seed, steps, device):
+def read_seed(cell, seed, steps, devices):
+    """The program's and the control's numbers on one seed, the cell run
+    on ``devices`` (the harness's ``cell_devices``); the check on the
+    first."""
     import torch
 
     from gpu_bench.harness import check, spec
     from gpu_bench.harness.recorder import Recorder
 
     t0 = time.perf_counter()
-    d = spec.driver(cell.config, cell.traffic, seed, device)
+    device = torch.device(devices[0])
+    d = spec.driver(cell.config, cell.traffic, seed, devices)
     d.setup()
     rec = Recorder()
     n = 0
@@ -73,7 +77,7 @@ def read_seed(cell, seed, steps, device):
         n += 1
     x = d.check_inputs()
     d.release()
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         torch.cuda.empty_cache()
     nums = check.numbers(x, cell.config, cell.traffic["check"], seed, device,
                          control=True)
@@ -87,14 +91,18 @@ def main(argv=None):
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the cell's cards (cuda:0 ... cuda:chips-1) or, "
+                    "rehearsing, ['cpu'] * chips")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    from gpu_bench.harness import main as harness
     from gpu_bench.harness import spec
 
     cell = spec.resolve(args.workload)
+    devices = harness.cell_devices(cell.chips, args.device)
     for s in args.seeds.split(","):
-        line = json.dumps(read_seed(cell, int(s), args.steps, args.device))
+        line = json.dumps(read_seed(cell, int(s), args.steps, devices))
         print(line, flush=True)
         if args.out:
             with open(args.out, "a") as fh:

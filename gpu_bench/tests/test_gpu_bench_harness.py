@@ -1,8 +1,8 @@
 """CPU tests of the benchmark harness: the cells resolve to their files,
 names and units keep to the allowed characters, the traffic builders,
-the trace arithmetic, the reference against the float64 oracle copy,
-and the result line's shape.  Card-only tests are marked ``gpu`` and
-skip here."""
+the trace arithmetic on one card and on two, the reference against the
+float64 oracle copy, and the result line's shape.  Card-only tests are
+marked ``gpu`` and skip here."""
 
 import json
 import os
@@ -77,6 +77,9 @@ def test_names_units_and_files():
     for m in b["per_layer"]:
         assert m["moves"] in {e["name"] for e in b["end_to_end"]}
         assert set(m["workloads"]) <= cells
+        for w in m["workloads"]:
+            # a cell that lists a per-layer metric reports what it moves
+            assert m["moves"] in {e["name"] for e in spec.resolve(w).end_to_end}
         assert "\n" not in m["layer"] and "\t" not in m["layer"]
     for e in b["end_to_end"]:
         assert 0.01 <= e["bound"] <= 0.25
@@ -142,7 +145,7 @@ def test_busy_idle_and_launch_arithmetic():
     assert trace.kernel_seconds(ev, ("segment_occluded_kernel",)) == \
         pytest.approx(0.10)
     spans = [("step", 0.0, 1.0), ("inverse_render", 0.05, 0.7)]
-    b = trace.breakdown(ev, 0.0, 1.0, spans)
+    b = trace.breakdown(ev, 0.0, 1.0, spans, [0])
     gaps = dict(b["idle_gaps"])
     assert gaps["inverse_render"] == pytest.approx(0.10 + 0.10)
     assert gaps["step"] == pytest.approx(0.18 + 0.10)
@@ -152,8 +155,99 @@ def test_busy_idle_and_launch_arithmetic():
     from gpu_bench.metrics import device_idle_pct
 
     class Ctx:
-        events, trace_t0, trace_t1 = ev, 0.0, 1.0
+        events, trace_t0, trace_t1, cards = ev, 0.0, 1.0, [0]
     assert device_idle_pct.read(Ctx) == pytest.approx(48.0)
+
+
+def _two_cards():
+    """Card 0 runs _events(); card 1 runs two kernels, [0.2, 0.5] and
+    [0.7, 0.8], both inside card 0's idle or busy time."""
+    E = trace.Event
+    return _events() + [E("occl_kernel(float const*)", 0.2, 0.5, 1),
+                        E("segment_occluded_kernel(float)", 0.7, 0.8, 1)]
+
+
+def test_one_card_reads_as_the_union_did(monkeypatch):
+    """On one card the per-card reads give the numbers that the one
+    timeline gave: busy_s, the idle share, the breakdown, the peak."""
+    from gpu_bench.harness import main
+    from gpu_bench.metrics import device_idle_pct
+
+    ev = _events()
+    assert trace.busy_per_card(ev, 0.0, 1.0, [0]) == [
+        trace.busy_seconds(ev, 0.0, 1.0)]
+    assert trace.mean_busy_seconds(trace.busy_per_card(ev, 0.0, 1.0, [0])) \
+        == trace.busy_seconds(ev, 0.0, 1.0) == pytest.approx(0.52)
+
+    class Ctx:
+        events, trace_t0, trace_t1, cards = ev, 0.0, 1.0, [0]
+    assert device_idle_pct.read(Ctx) == 100.0 * (
+        1.0 - trace.busy_seconds(ev, 0.0, 1.0) / 1.0)
+    spans = [("step", 0.0, 1.0), ("inverse_render", 0.05, 0.7)]
+    # the gaps the one timeline gave (test_busy_idle_and_launch_arithmetic)
+    assert dict(trace.breakdown(ev, 0.0, 1.0, spans, [0])["idle_gaps"]) == \
+        pytest.approx({"inverse_render": 0.20, "step": 0.28})
+    peaks = {0: 10, 1: 30}
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda d: peaks[d.index])
+    assert main.memory_peak([torch.device("cuda", 0)]) == 10
+    assert main.memory_peak(main.cell_devices(2)) == 30
+    assert main.memory_peak([torch.device("cuda", 0)] * 4) == 10
+    assert main.memory_peak(main.cell_devices(4, "cpu")) == 0
+
+
+def test_two_cards_are_read_card_by_card():
+    """Busy time per card and its mean, the idle share as the mean per
+    card, the breakdown's gaps summed over the cards, and a card with no
+    event idle throughout."""
+    from gpu_bench.metrics import device_idle_pct, launches_per_iter
+
+    ev = _two_cards()
+    assert trace.busy_per_card(ev, 0.0, 1.0, [0, 1]) == pytest.approx(
+        [0.52, 0.40])
+    assert trace.mean_busy_seconds(trace.busy_per_card(
+        ev, 0.0, 1.0, [0, 1])) == pytest.approx(0.46)
+    # one timeline over both cards would read 0.72 busy: "some card busy"
+    assert trace.busy_seconds(ev, 0.0, 1.0) == pytest.approx(0.72)
+    assert trace.busy_per_card(ev, 0.0, 1.0, [0, 1, 2])[2] == 0.0
+
+    class Ctx:
+        events, trace_t0, trace_t1, cards = ev, 0.0, 1.0, [0, 1]
+        trace_iterations = 2
+    assert device_idle_pct.read(Ctx) == pytest.approx(54.0)
+    assert launches_per_iter.read(Ctx) == pytest.approx(7 / 2)
+    spans = [("step", 0.0, 1.0), ("inverse_render", 0.05, 0.7)]
+    b = trace.breakdown(ev, 0.0, 1.0, spans, [0, 1])
+    gaps = dict(b["idle_gaps"])
+    # card 0: inverse_render 0.20, step 0.28; card 1: [0, 0.2] and
+    # [0.5, 0.7] under inverse_render, [0.8, 1.0] under step (each gap
+    # named by the span at its midpoint)
+    assert gaps["inverse_render"] == pytest.approx(0.20 + 0.40)
+    assert gaps["step"] == pytest.approx(0.28 + 0.20)
+    assert sum(gaps.values()) == pytest.approx(2.0 - 0.92)
+    ops = dict(b["device_ops"])
+    assert ops["occl_kernel(float const*)"] == pytest.approx(0.3)
+    assert trace.kernel_seconds(ev, ("occl_kernel",)) == pytest.approx(0.5)
+
+
+def test_each_card_is_mapped_from_its_own_marker():
+    """Two cards whose device clocks differ: each card's events land on
+    the host clock from that card's first marker; a card of the cell
+    with no marker, or an event on a card outside the cell, raises."""
+    spin = trace.SPIN + "(long)"
+    raw = [(spin, 5_000.0, 6_000.0, 0), ("k0", 7_000.0, 8_000.0, 0),
+           (spin, 900_000.0, 901_000.0, 1), ("k1", 900_500.0, 902_500.0, 1),
+           (spin, 950_000.0, 951_000.0, 1)]
+    ev = trace.on_host_clock(raw, {0: 10.0, 1: 10.25})
+    assert [e.name for e in ev] == ["k0", "k1"]
+    k0, k1 = ev
+    assert (k0.device, k1.device) == (0, 1)
+    assert (k0.start, k0.end) == pytest.approx((10.002, 10.003))
+    assert (k1.start, k1.end) == pytest.approx((10.2505, 10.2525))
+    with pytest.raises(RuntimeError, match="no marker"):
+        trace.on_host_clock(raw, {0: 10.0, 1: 10.25, 2: 10.5})
+    with pytest.raises(RuntimeError, match="outside"):
+        trace.on_host_clock(raw, {0: 10.0})
 
 
 def test_roofline_arithmetic_on_a_hand_made_trace():

@@ -16,13 +16,17 @@ import importlib, json, sys
 sys.path.insert(0, {root!r})
 for name in {modules!r}:
     importlib.import_module(name)
+from gpu_bench.harness import spec
+for metric in {metrics!r}:
+    spec.reader(metric)
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
 
-def _top_level_after(modules):
+def _top_level_after(modules, metrics=()):
     out = subprocess.run(
-        [sys.executable, "-c", PROBE.format(root=ROOT, modules=modules)],
+        [sys.executable, "-c", PROBE.format(root=ROOT, modules=modules,
+                                            metrics=list(metrics))],
         capture_output=True, text=True, timeout=300, cwd=ROOT,
         env={**os.environ, "USE_FLAX": "0"})
     assert out.returncode == 0, out.stderr[-2000:]
@@ -30,20 +34,22 @@ def _top_level_after(modules):
 
 
 def _bench_modules():
-    with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
-        b = json.load(fh)
     names = ["gpu_bench.harness.main", "gpu_bench.harness.check",
              "gpu_bench.readings"]
-    for t in os.listdir(os.path.join(BENCH, "traffic")):
-        with open(os.path.join(BENCH, "traffic", t)) as fh:
-            names.append(f"gpu_bench.drivers.{json.load(fh)['kind']}")
-    names += [f"gpu_bench.metrics.{m['name']}"
-              for m in b["end_to_end"] + b["per_layer"]]
+    names += [f"gpu_bench.drivers.{f[:-3]}"
+              for f in sorted(os.listdir(os.path.join(BENCH, "drivers")))
+              if f.endswith(".py") and f != "__init__.py"]
     return names
 
 
+def _bench_metrics():
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
+        b = json.load(fh)
+    return [m["name"] for m in b["end_to_end"] + b["per_layer"]]
+
+
 def test_harness_metrics_and_reference_load_no_jax():
-    loaded = _top_level_after(_bench_modules())
+    loaded = _top_level_after(_bench_modules(), _bench_metrics())
     assert "nlos_surface_optimization_torch" in loaded
     assert not loaded & {"jax", "jaxlib", "flax",
                          "nlos_surface_optimization_tpu"}

@@ -78,12 +78,12 @@ def test_sweep_agrees_with_the_breakdown_labels():
     ev = _ev((0.0, 1.2), (1.5, 4.1), (4.2, 6.1), (6.3, 8.8), (9.0, 15.2),
              (15.5, 18.0), (18.5, 20.0))
     idle = program_spans.idle_by_span(ev, 0.0, 20.0, spans)
-    gaps = dict(trace.breakdown(ev, 0.0, 20.0, spans)["idle_gaps"])
+    gaps = dict(trace.breakdown(ev, 0.0, 20.0, spans, [0])["idle_gaps"])
     assert {k: v for k, v in idle.items() if v > 0} == pytest.approx(gaps)
 
 
 class _Ctx:
-    trace_t0, trace_t1, trace_iterations = 0.0, 10.0, 2
+    trace_t0, trace_t1, trace_iterations, cards = 0.0, 10.0, 2, [0]
 
     def __init__(self, events=EVENTS):
         self.events = events
